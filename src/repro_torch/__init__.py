@@ -7,15 +7,16 @@ package never imports it (nor JAX).  The public surface is
 """
 
 from .api import (POLICIES, AdmissionPolicy, Backpressure, CTFrontDoor,
-                  DeadlinePolicy, FairSharePolicy, FIFOPolicy, Geometry,
-                  PolicyContext, ProjectionChunk, ReconstructionEngine,
-                  ScanAborted, ScanState, ScanTicket, SRSFPolicy,
-                  filter_projections, reconstruct)
+                  DeadlinePolicy, ExecutionPlan, FairSharePolicy,
+                  FIFOPolicy, Geometry, PolicyContext, ProjectionChunk,
+                  ReconstructionEngine, ScanAborted, ScanState, ScanTicket,
+                  SRSFPolicy, filter_projections, reconstruct)
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "Geometry", "filter_projections", "reconstruct", "ProjectionChunk",
+    "Geometry", "filter_projections", "reconstruct", "ExecutionPlan",
+    "ProjectionChunk",
     "ReconstructionEngine", "ScanState", "CTFrontDoor", "ScanTicket",
     "Backpressure", "ScanAborted", "AdmissionPolicy", "FIFOPolicy",
     "SRSFPolicy", "DeadlinePolicy", "FairSharePolicy", "PolicyContext",

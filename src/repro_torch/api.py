@@ -18,6 +18,7 @@ from __future__ import annotations
 from .core.backproject import reconstruct
 from .core.filtering import filter_projections
 from .core.geometry import Geometry
+from .dispatch import ExecutionPlan
 from .serving.ct_frontdoor import (POLICIES, AdmissionPolicy, Backpressure,
                                    CTFrontDoor, DeadlinePolicy,
                                    FairSharePolicy, FIFOPolicy,
@@ -30,6 +31,8 @@ __all__ = [
     "Geometry",
     "filter_projections",
     "reconstruct",
+    # execution plans
+    "ExecutionPlan",
     # streaming engine
     "ProjectionChunk",
     "ReconstructionEngine",

@@ -1,10 +1,12 @@
 """Carry state across from the JAX package to the port.
 
 CT has no weights: what both sides must share to compute the same thing
-is the geometry, the filter plan and the slot volumes.  The reference's
-objects arrive here as plain Python and numpy values (this package never
-imports ``repro``): a geometry as ``dataclasses.asdict(geom)``, a filter
-plan as its fields, volumes and projection stacks as numpy arrays.
+is the geometry, the filter plan, the execution plan, the int8 wire's
+encodings and the slot volumes.  The reference's objects arrive here as
+plain Python and numpy values (this package never imports ``repro``): a
+geometry as ``dataclasses.asdict(geom)``, a filter plan as its fields,
+an execution plan as ``plan.as_dict()``, a ``RowQuant`` as its three
+numpy arrays, volumes and projection stacks as numpy arrays.
 """
 
 from __future__ import annotations
@@ -15,9 +17,12 @@ import torch
 from ._device import as_f32, resolve_device
 from .core.filtering import FilterPlan
 from .core.geometry import Geometry
+from .dispatch.plan import ExecutionPlan
+from .quant import RowQuant
 
 __all__ = ["geometry_from_reference", "filter_plan_from_reference",
-           "tensor_from_reference"]
+           "tensor_from_reference", "rowquant_from_reference",
+           "plan_from_reference"]
 
 
 def geometry_from_reference(fields: dict) -> Geometry:
@@ -47,3 +52,31 @@ def tensor_from_reference(array, *, device="cuda") -> torch.Tensor:
     """A float32 tensor on ``device`` from a reference volume or
     projection stack handed over as numpy."""
     return as_f32(array, resolve_device(device))
+
+
+def rowquant_from_reference(rq, *, device="cuda") -> RowQuant:
+    """A port :class:`RowQuant` from the reference's ``(codes, scale,
+    offset)`` (int8 and float32 numpy, any leading stack axes), carried
+    bitwise to ``device``."""
+    codes, scale, offset = (np.asarray(a) for a in rq)
+    if codes.dtype != np.int8:
+        raise TypeError(f"codes must be int8, got {codes.dtype}")
+    if scale.shape != codes.shape[:-1] or offset.shape != scale.shape:
+        raise ValueError(f"scale/offset must be {codes.shape[:-1]} for "
+                         f"codes {codes.shape}; got {scale.shape} and "
+                         f"{offset.shape}")
+    dev = resolve_device(device)
+    return RowQuant(torch.tensor(codes, device=dev),
+                    tensor_from_reference(scale, device=dev),
+                    tensor_from_reference(offset, device=dev))
+
+
+def plan_from_reference(fields: dict) -> ExecutionPlan:
+    """A port :class:`ExecutionPlan` from the reference plan's
+    ``as_dict()``, revalidated as an explicit plan.  A tuned kernel
+    decision (``pallas`` set) is not ported and raises."""
+    if fields.get("pallas") or fields.get("use_pallas"):
+        raise ValueError("tuned kernel decisions (pallas=...) are not "
+                         "ported; carry an explicit plan")
+    return ExecutionPlan.explicit(fields["strategy"], fields["opts"],
+                                  fields["pbatch"])

@@ -2,7 +2,10 @@
 kernel (``csrc/``), a wrapper that checks, pads and launches it, and a
 plain PyTorch version (``*_ref``) that the CPU path runs.
 
-Nothing is built or loaded at import time; the first launch builds.
+The kernels: ``csrc/backproject.cu`` (back projection, one instance
+per projection wire: float32, bfloat16, int8) and ``csrc/quant.cu``
+(the int8 row encoder).  Nothing is built or loaded at import time; the
+first launch builds.
 """
 
 from .backproject import LAUNCHES

@@ -3,15 +3,17 @@
 The counterparts of ``repro.kernels.backproject_ops.pallas_backproject_
 batch`` / ``pallas_backproject_one``.  On a CUDA volume the wrapper pads
 the projection stack once with the 1-pixel zero border the zero-outside
-rule relies on and launches the CUDA kernel once per ``pbatch``
-projections; it never falls back.  On a CPU volume, and only there, it
-runs the plain version (:mod:`.backproject_ref`).
+rule relies on, puts it on the wire (``strip_dtype``: float32 as it is,
+a bfloat16 cast, or int8 codes from one launch of the row quantiser for
+the whole stack, as the reference encodes once per call) and launches
+the kernel once per ``pbatch`` projections; it never falls back.  On a
+CPU volume, and only there, it runs the plain version
+(:mod:`.backproject_ref`) on the same wire.
 
 The reference's TPU tiling keywords (``ty``, ``chunk``, ``band``,
 ``width``, ``double_buffer``, ``db_depth``, ``micro*``,
-``shared_window*``, and ``strip_dtype`` other than ``"float32"``) shape
-VMEM strips a GPU kernel has no use for; this slice takes none of them,
-and passing one raises.
+``shared_window*``) shape VMEM strips a GPU kernel has no use for; this
+wrapper takes none of them, and passing one raises.
 """
 
 from __future__ import annotations
@@ -20,19 +22,17 @@ import torch
 import torch.nn.functional as F
 
 from .._device import as_f32
-from ..core.backproject import DEFAULT_PBATCH, GeomStatic, _stream_batches
+from ..core.backproject import (DEFAULT_PBATCH, GeomStatic, _stream_batches,
+                                strip_wire_dtype)
 from ..core.geometry import Geometry
 from .backproject import launch_backproject
 from .backproject_ref import backproject_batch_ref
+from .quant import launch_quantize_rows
 
 __all__ = ["backproject_batch", "backproject_one"]
 
 
-def _reject_tpu_opts(strip_dtype: str, opts: dict) -> None:
-    if strip_dtype != "float32":
-        raise ValueError(
-            f"strip_dtype={strip_dtype!r} is not ported; the kernel takes "
-            f"float32 projections")
+def _reject_tpu_opts(opts: dict) -> None:
     if opts:
         raise ValueError(
             f"TPU tiling options {sorted(opts)} are not taken by the CUDA "
@@ -60,6 +60,18 @@ def _operands(volume, images, mats, gs: GeomStatic):
     return mats
 
 
+def _on_wire(images, wire):
+    """The zero-bordered CUDA stack on the wire: a tensor (float32,
+    bfloat16) or the int8 ``(codes, scales)`` pair from one encoder
+    launch."""
+    padded = F.pad(images, (1, 1, 1, 1)).contiguous()
+    if wire is None:
+        return padded
+    if wire is torch.bfloat16:
+        return padded.to(torch.bfloat16)
+    return launch_quantize_rows(padded)
+
+
 def backproject_batch(volume, images, mats, geom: Geometry | GeomStatic, *,
                       pbatch: int = DEFAULT_PBATCH, z0: int = 0,
                       strip_dtype: str = "float32", **tpu_opts):
@@ -69,25 +81,31 @@ def backproject_batch(volume, images, mats, geom: Geometry | GeomStatic, *,
     ``volume``: ``(nz, L, L)`` float32, a z-slab starting at global
     plane ``z0`` (the whole volume at ``z0=0``); ``images``: unpadded
     ``(n_proj, n_v, n_u)`` float32 on the volume's device; ``mats``:
-    ``(n_proj, 3, 4)``.  A ``pbatch ∤ n_proj`` remainder runs as one
-    final smaller launch.
+    ``(n_proj, 3, 4)``; ``strip_dtype``: the projection wire,
+    ``"float32"``, ``"bfloat16"`` or ``"int8"``.  A ``pbatch ∤ n_proj``
+    remainder runs as one final smaller launch.
     """
-    _reject_tpu_opts(strip_dtype, tpu_opts)
+    wire = strip_wire_dtype(strip_dtype)
+    _reject_tpu_opts(tpu_opts)
     gs = geom if isinstance(geom, GeomStatic) else GeomStatic.of(geom)
     mats = _operands(volume, images, mats, gs)
     if volume.is_cuda:
-        padded = F.pad(images, (1, 1, 1, 1)).contiguous()
-        return _stream_batches(
-            padded, mats, volume, pbatch,
-            lambda vol, imgs, ms: launch_backproject(
-                vol, imgs.contiguous(), ms.contiguous(), z0=z0, O=gs.O,
-                MM=gs.MM))
+        def launch(vol, stack, ms):
+            codes, scales = stack if isinstance(stack, tuple) \
+                else (stack, None)
+            return launch_backproject(
+                vol, codes.contiguous(), ms.contiguous(), z0=z0, O=gs.O,
+                MM=gs.MM,
+                scales=None if scales is None else scales.contiguous())
+
+        return _stream_batches(_on_wire(images, wire), mats, volume, pbatch,
+                               launch)
     if volume.device.type != "cpu":
         raise ValueError(f"no back projection for device {volume.device}")
     return _stream_batches(
         images, mats, volume, pbatch,
-        lambda vol, imgs, ms: backproject_batch_ref(vol, imgs, ms, gs,
-                                                    z0=z0))
+        lambda vol, imgs, ms: backproject_batch_ref(
+            vol, imgs, ms, gs, z0=z0, wire=str(strip_dtype)))
 
 
 def backproject_one(volume, image, A, geom: Geometry | GeomStatic, *,

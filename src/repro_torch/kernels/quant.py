@@ -1,0 +1,57 @@
+"""The bound launcher of the CUDA row quantiser (``csrc/quant.cu``).
+
+:func:`launch_quantize_rows` encodes a ``(P, rows, cols)`` float32 stack
+into int8 codes and a ``(P, 2, rows)`` scale/offset block on the card,
+counts the launch in :data:`repro_torch.kernels.backproject.LAUNCHES`
+(key ``"quantize_rows"``) and raises when the launch is refused.  Its
+plain version is :func:`repro_torch.quant.quantize_rows_ref`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .backproject import LAUNCHES
+
+__all__ = ["launch_quantize_rows"]
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]
+
+
+def _lib():
+    fn = _build.load("quant").quantize_rows_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_quantize_rows(x: torch.Tensor, *, symmetric: bool = False):
+    """Encode ``x`` (``(P, rows, cols)`` float32, contiguous, on a CUDA
+    device); returns ``(codes, scales)``: int8 ``(P, rows, cols)`` and
+    float32 ``(P, 2, rows)`` (``[:, 0]`` scale, ``[:, 1]`` offset)."""
+    if not x.is_cuda:
+        raise ValueError(f"x lies on {x.device}; the kernel needs a CUDA "
+                         f"tensor")
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.ndim != 3:
+        raise ValueError(f"x must be a contiguous (P, rows, cols) float32 "
+                         f"tensor; got {x.dtype} {tuple(x.shape)}")
+    P, rows, cols = (int(n) for n in x.shape)
+    if P * rows == 0 or cols == 0:
+        raise ValueError(f"nothing to encode in a {tuple(x.shape)} stack")
+    codes = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scales = torch.empty((P, 2, rows), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = _lib()(x.data_ptr(), codes.data_ptr(), scales.data_ptr(), P,
+                    rows, cols, int(bool(symmetric)), stream)
+    if rc != 0:
+        raise RuntimeError(f"quantize_rows kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES["quantize_rows"] += 1
+    return codes, scales

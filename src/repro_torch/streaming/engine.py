@@ -13,8 +13,9 @@ The port's counterpart of ``repro.streaming.engine`` (DESIGN.md §8):
   masked step over the stack (or one Pallas launch per ready slot), the
   port folds each ready slot **in place** on that slot's view of the
   stack: through the CUDA kernel on a CUDA device, one launch per ready
-  slot, through ``scalar`` on the CPU.  Slots that are not ready are
-  never touched, which is the mask;
+  slot (plus one encode on the int8 wire), through the named strategy
+  on the CPU.  Slots that are not ready are never touched, which is the
+  mask;
 * finished scans retire, their slot is zeroed in place and refilled
   from the admission queue.
 
@@ -31,9 +32,11 @@ import numpy as np
 import torch
 
 from .._device import as_f32, resolve_device
-from ..core.backproject import GeomStatic, _check_strategy, fold_projections
+from ..core.backproject import (GeomStatic, check_windows,
+                                fold_projections)
 from ..core.filtering import apply_filter, make_filter_plan
 from ..core.geometry import Geometry
+from ..dispatch.plan import ExecutionPlan
 
 __all__ = ["ProjectionChunk", "ScanState", "ReconstructionEngine"]
 
@@ -94,22 +97,36 @@ class ScanState:
 class ReconstructionEngine:
     """Accept projection chunks in arrival order; serve volumes.
 
-    ``strategy`` names the back-projection semantics (``"scalar"``, the
-    one this slice ports); on a CUDA ``device`` every fold runs the
-    hand-written kernel, on ``device="cpu"`` the plain ``scalar`` fold.
-    ``pbatch`` projections fold per volume pass (default 4).  The slot
-    volumes are updated in place.
+    ``strategy`` and ``**opts`` name the back projection and its options
+    (validated strictly into an :class:`ExecutionPlan`, or pass a
+    pre-built ``plan=``).  On a CUDA ``device`` every fold runs the
+    hand-written kernel on the plan's wire (``strip_dtype``: float32,
+    bfloat16, or int8 codes encoded once per fold); on ``device="cpu"``
+    the named strategy's plain sampler.  On the CPU ``validate=True``
+    checks ``strip``/``strip2`` windows against the host planner for
+    every submitted chunk (memoised per matrix set); the kernel reads
+    taps directly, so on the card the windows cannot drop taps and are
+    not checked.  ``pbatch`` projections fold per volume pass (default
+    4).
+    The slot volumes are updated in place.
     """
 
     def __init__(self, geom: Geometry, *, n_slots: int = 4,
                  strategy: str = "scalar", pbatch: int | None = None,
-                 short_scan: bool | None = None, device="cuda"):
-        _check_strategy(strategy)
+                 short_scan: bool | None = None, validate: bool = True,
+                 plan: ExecutionPlan | None = None, device="cuda",
+                 **opts):
+        if plan is None:
+            plan = ExecutionPlan.explicit(strategy, opts, pbatch)
         self.device = resolve_device(device)
         self.geom = geom
         self.gs = GeomStatic.of(geom)
-        self.strategy = strategy
-        self.pbatch = max(1, int(pbatch) if pbatch is not None else 4)
+        self.pbatch = max(1, int(pbatch) if pbatch is not None
+                          else plan.pbatch)
+        self.exec_plan = plan._replace(pbatch=self.pbatch)
+        self.strategy = plan.strategy
+        self.opts = plan.jnp_opts()
+        self.validate = bool(validate)
         self.n_slots = int(n_slots)
         self.plan = make_filter_plan(geom, short_scan, device=self.device)
         self._volumes = torch.zeros((self.n_slots,) + (geom.L,) * 3,
@@ -189,6 +206,8 @@ class ReconstructionEngine:
             raise ValueError(
                 f"scan {sid} declared {scan.n_proj} projections; "
                 f"{scan.received + k} submitted")
+        if self.validate:
+            check_windows(self.geom, mats, self.exec_plan, self.device)
         pw = None
         if self.plan.parker is not None:
             pw = self.plan.parker[torch.as_tensor(idx, dtype=torch.int64,
@@ -229,7 +248,7 @@ class ReconstructionEngine:
         for slot, scan in ready:
             imgs, ms, n = self._take_batch(scan)
             fold_projections(self._volumes[slot], imgs, ms, self.gs,
-                             self.strategy, pbatch=self.pbatch)
+                             plan=self.exec_plan)
             scan.folded += n
             self.stats["folds"] += n
             self.stats["fold_launches"] += 1

@@ -172,24 +172,51 @@ def test_cpu_path_launches_no_kernel():
     assert LAUNCHES["backproject"] == 0
 
 
-@pytest.mark.parametrize("strategy", ["strip2", "gather", "auto"])
-def test_unported_strategy_raises(strategy):
-    with pytest.raises(ValueError, match="not ported"):
+# The ids of the slice-1 cases stay: "strip2" and "gather" are ported
+# now, so those cases hold what each still refuses.
+@pytest.mark.parametrize("strategy,opts,match", [
+    pytest.param("strip2", {"ty": 8}, "unknown option", id="strip2"),
+    pytest.param("gather", {"strip_dtype": "int8"}, "do not apply",
+                 id="gather"),
+    pytest.param("auto", {}, "not ported", id="auto"),
+    pytest.param("bogus", {}, "unknown strategy", id="bogus"),
+    pytest.param("auto", {"strip_dtype": "int8"}, "not ported",
+                 id="auto-with-opts"),
+])
+def test_unported_strategy_raises(strategy, opts, match):
+    with pytest.raises(ValueError, match=match):
         tbp.backproject_batch(torch.zeros(16, 16, 16), FILT, MATS, G,
-                              strategy=strategy)
+                              strategy=strategy, **opts)
 
 
-@pytest.mark.parametrize("opt", [{"ty": 8}, {"chunk": 64}, {"band": 16},
-                                 {"width": 512}, {"double_buffer": True},
-                                 {"micro": True}, {"shared_window": True},
-                                 {"strip_dtype": "int8"},
-                                 {"strip_dtype": "bfloat16"}])
-def test_tpu_tiling_options_raise(opt):
-    with pytest.raises(ValueError, match="not"):
-        backproject_batch(torch.zeros(16, 16, 16), torch.tensor(FILT), MATS,
-                          G, **opt)
+# The wire (strip_dtype) is ported: those cases now run on the CPU and
+# equal the plain version on that wire; the TPU tiling keys still raise.
+@pytest.mark.parametrize("opt,raises", [
+    pytest.param({"ty": 8}, True, id="opt0"),
+    pytest.param({"chunk": 64}, True, id="opt1"),
+    pytest.param({"band": 16}, True, id="opt2"),
+    pytest.param({"width": 512}, True, id="opt3"),
+    pytest.param({"double_buffer": True}, True, id="opt4"),
+    pytest.param({"micro": True}, True, id="opt5"),
+    pytest.param({"shared_window": True}, True, id="opt6"),
+    pytest.param({"strip_dtype": "int8"}, False, id="opt7"),
+    pytest.param({"strip_dtype": "bfloat16"}, False, id="opt8"),
+])
+def test_tpu_tiling_options_raise(opt, raises):
+    vol = torch.tensor(_volume(7))
+    if raises:
+        with pytest.raises(ValueError, match="not"):
+            backproject_batch(vol, torch.tensor(FILT), MATS, G, **opt)
+        return
+    want = backproject_batch_ref(vol.clone(), torch.tensor(FILT),
+                                 torch.tensor(MATS), tbp.GeomStatic.of(G),
+                                 wire=opt["strip_dtype"])
+    out = backproject_batch(vol, torch.tensor(FILT), MATS, G, pbatch=6,
+                            **opt)
+    assert torch.equal(out, want)
 
 
+@pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")

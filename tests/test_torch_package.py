@@ -26,6 +26,9 @@ def _is_forbidden(name: str) -> bool:
 def test_import_pulls_in_no_jax_and_no_reference():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.convert, "
             "repro_torch.kernels, repro_torch.kernels._build, "
+            "repro_torch.kernels.quant, repro_torch.quant, "
+            "repro_torch.dispatch, repro_torch.tune, "
+            "repro_torch.core.clipping, "
             "repro_torch.core.phantom, repro_torch.core.quality\n"
             "print('\\n'.join(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -143,4 +143,7 @@ def test_engine_rejects_bad_submissions():
     with pytest.raises(ValueError, match="finished"):
         eng.submit(sid, ProjectionChunk(PROJS[2], MATS[2], 2))
     with pytest.raises(ValueError, match="not ported"):
-        ReconstructionEngine(G, strategy="strip2", device="cpu")
+        ReconstructionEngine(G, strategy="auto", device="cpu")
+    with pytest.raises(ValueError, match="strip_dtype"):
+        ReconstructionEngine(G, strategy="strip2", strip_dtype="int4",
+                             device="cpu")
