@@ -3,17 +3,22 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (the
-back projection, with one instance per projection wire, and the int8
-row encoder) and holds each against its plain PyTorch version at full
-RabbitCT width (L = 512, 1248 x 960 detector).  Then it serves two full
-496-projection scans through ``CTFrontDoor`` -> ``ReconstructionEngine``
--> the kernel on the float32 wire, two more on the int8 wire
-(``strategy="strip2"``), runs one one-shot reconstruction on the
-bfloat16 wire, and checks every volume.  Any failed check exits
-non-zero.  The last line of standard output is ``{"ok": true,
-"device": {...}}``; the line before it the JSON record of every kernel
-of the path.  Needs one CUDA card; imports nothing of JAX or of the JAX
-package.
+back projection, with one instance per projection wire, the int8 row
+encoder, and the strip-staged kernels K3 ``strip_db``, K4
+``strip_micro`` and K5 ``strip_shared``) and holds each against its
+plain PyTorch version at full RabbitCT width (L = 512, 1248 x 960
+detector).  Then it serves two full 496-projection scans through
+``CTFrontDoor`` -> ``ReconstructionEngine`` -> the kernel on the float32
+wire, two more on the int8 wire (``strategy="strip2"``), runs one
+one-shot reconstruction on the bfloat16 wire, checks the strip planner
+on the card against a numpy copy and times it over all 496 matrices,
+serves two scans with ``strategy="auto"`` (in-situ selection from an
+empty tune directory, then a cache hit), folds a full scan through each
+strip kernel as a tuned plan names it, and checks every volume.  Any
+failed check exits non-zero.  The last line of standard output is
+``{"ok": true, "device": {...}}``; the line before it the JSON record of
+every kernel of the path.  Needs one CUDA card; imports nothing of JAX
+or of the JAX package.
 """
 
 from __future__ import annotations
@@ -21,10 +26,12 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures
 import json
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -62,6 +69,24 @@ MIN_PSNR_DB = 15.0        # an all-zero volume scores ~11 dB here
 # the phantom PSNR), the reference's envelope for each wire.
 WIRE_ENVELOPE = {"bfloat16": (40.0, 0.5), "int8": (35.0, 1.0)}
 N_VALIDATE = 4            # matrices put through the host window check
+# The reference tuner's base tile (ty, chunk), at which the planner is
+# timed over all matrices.  The strip kernels run at the first of
+# STRIP_TILES whose windows, sized by the planner over all matrices, fit
+# a block (K3's 4-deep float32 ring, K5's slab of N_CHECK float32 views
+# and of every PBATCH group of the scan).  One-line tiles: the planner
+# merges the strip origins of a tile's lines, inactive lines included,
+# so at L = 512 an 8-line tile needs a strip as wide as the detector.
+STRIP_TILE = (8, 32)
+STRIP_TILES = ((1, 128), (1, 64), (1, 32))
+# (LAUNCHES key, TPU kernel replaced, wrapper keywords) of each strip
+# kernel configuration the smoke run checks.
+STRIP_VARIANTS = (
+    ("strip_db", "db2", dict(double_buffer=True, db_depth=2)),
+    ("strip_db", "db4", dict(double_buffer=True, db_depth=4)),
+    ("strip_micro", "micro", dict(micro=True, micro_group=8, micro_band=8,
+                                  micro_width=32)),
+    ("strip_shared", "shared", dict(shared_window=True)),
+)
 
 
 def fail(msg: str) -> None:
@@ -149,9 +174,9 @@ def build_all() -> float:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(_build.load, n)
-                  for n in ("backproject", "quant")]:
+    sources = ("backproject", "quant", "backproject_strip")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        for f in [pool.submit(_build.load, n) for n in sources]:
             f.result()
     return time.perf_counter() - t0
 
@@ -453,6 +478,479 @@ def serve_wire(geom, dev, projs, mats, filt, v32, ref, mask):
             "wall16": wall16, "score16": score16}
 
 
+# ----------------------------------------------------------------------
+# The strip planner on the card (phase 5)
+# ----------------------------------------------------------------------
+
+def np_plan_strips(geom, A, chunk):
+    """A numpy copy of the strip planner (the port's algorithm, which is
+    the reference's), for the card's planner to be held against:
+    ``(r0, c0, active, required_band, required_width)``."""
+    A = np.asarray(A, np.float64)
+    L = geom.L
+    wcoord = geom.O + np.arange(L, dtype=np.float64) * geom.MM
+    wy, wz, w0 = wcoord[None, :, None], wcoord[:, None, None], geom.O
+    p = [(A[i, 0] * w0 + A[i, 1] * wy + A[i, 2] * wz + A[i, 3])[..., 0]
+         for i in range(3)]
+    q = [A[i, 0] * geom.MM for i in range(3)]
+    (pu, pv, pw), (qu, qv, qw) = p, q
+
+    def halfline(lo, hi, a, b):
+        with np.errstate(divide="ignore", invalid="ignore"):
+            root = -a / b
+        lo2 = np.where(b > 0, np.maximum(lo, root), lo)
+        hi2 = np.where(b < 0, np.minimum(hi, root), hi)
+        dead = (b == 0) & (a <= 0)
+        return np.where(dead, np.inf, lo2), np.where(dead, -np.inf, hi2)
+
+    lo, hi = np.full(pu.shape, -np.inf), np.full(pu.shape, np.inf)
+    for a, b in ((pw - 1e-6, qw), (pu + pw, qu + qw),
+                 (geom.n_u * pw - pu, geom.n_u * qw - qu),
+                 (pv + pw, qv + qw), (geom.n_v * pw - pv,
+                                      geom.n_v * qw - qv)):
+        lo, hi = halfline(lo, hi, a, np.full_like(pw, b))
+    x0 = np.clip(np.ceil(lo), 0, L).astype(np.int32)
+    x1 = np.maximum(np.clip(np.floor(hi) + 1, 0, L).astype(np.int32), x0)
+    xs = np.arange(L // chunk) * chunk
+    fx0 = x0[..., None].astype(np.float64)
+    fx1 = x1[..., None].astype(np.float64)
+    xa = np.maximum(xs[None, None, :].astype(np.float64), fx0)
+    xb = np.maximum(np.minimum((xs + chunk - 1)[None, None, :]
+                               .astype(np.float64), fx1 - 1.0), xa)
+
+    def coords(xq):
+        u, v = pu[..., None] + qu * xq, pv[..., None] + qv * xq
+        w = pw[..., None] + qw * xq
+        w = np.where(np.abs(w) < 1e-12, 1e-12, w)
+        return (np.clip(u / w, -1.0, float(geom.n_u)),
+                np.clip(v / w, -1.0, float(geom.n_v)))
+
+    (ca, ra), (cb, rb) = coords(xa), coords(xb)
+    c_lo = np.floor(np.minimum(ca, cb))
+    c_hi = np.floor(np.maximum(ca, cb)) + 1
+    r_lo = np.floor(np.minimum(ra, rb))
+    r_hi = np.floor(np.maximum(ra, rb)) + 1
+    active = (np.minimum(fx1, (xs + chunk)[None, None, :].astype(np.float64))
+              > np.maximum(fx0, xs[None, None, :].astype(np.float64)))
+    req_b = int(np.max(np.where(active, r_hi - r_lo, 0)) + 2)
+    req_w = int(np.max(np.where(active, c_hi - c_lo, 0)) + 2)
+    band = max(8, (req_b + 7) // 8 * 8)
+    width = max(128, (req_w + 127) // 128 * 128)
+    r0 = np.clip(r_lo + 1 - 1, 0, geom.n_v + 2 - band).astype(np.int32)
+    c0 = np.clip(c_lo + 1 - 1, 0, geom.n_u + 2 - width).astype(np.int32)
+    return r0, c0, active, req_b, req_w
+
+
+def check_planner(geom, dev):
+    """Phase 5: the strip planner on the card equals its numpy copy on 4
+    matrices (strip origins, active chunks, requirements, at the strip
+    kernels' chunk and at strip2's group=8), and its time for all the
+    scan's matrices."""
+    from repro_torch.core import clipping
+    from repro_torch.core.geometry import projection_matrices
+
+    mats = projection_matrices(geom)
+    sel = mats[::geom.n_proj // N_VALIDATE][:N_VALIDATE]
+    out = {}
+    for chunk in (STRIP_TILE[1], 8):
+        t_card = t_host = 0.0
+        for A in sel:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan = clipping.plan_strips(geom, A, chunk, device=dev)
+            torch.cuda.synchronize()
+            t_card += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            r0, c0, active, rb, rw = np_plan_strips(geom, A, chunk)
+            t_host += time.perf_counter() - t0
+            same = (np.array_equal(plan.r0.cpu().numpy(), r0)
+                    and np.array_equal(plan.c0.cpu().numpy(), c0)
+                    and np.array_equal(plan.active.cpu().numpy(), active)
+                    and (plan.required_band, plan.required_width)
+                    == (rb, rw))
+            if not same:
+                fail(f"the planner on the card disagrees with its numpy "
+                     f"copy (chunk={chunk})")
+        print(f"  chunk={chunk}: card planner equals the numpy copy on "
+              f"{len(sel)} matrices; {t_card / len(sel) * 1e3:.1f} ms per "
+              f"matrix on the card (one at a time), {t_host / len(sel):.2f}"
+              f" s per matrix for numpy on the host")
+        out[f"per_matrix_chunk{chunk}"] = {"card_s": t_card / len(sel),
+                                           "host_numpy_s": t_host / len(sel)}
+    for chunk, ty, what in ((STRIP_TILE[1], STRIP_TILE[0],
+                             "the strip kernels' tile"),
+                            (8, 1, "strip2's group=8")):
+        clipping._NEEDS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        needs = clipping.strip_needs(geom, mats, chunk=chunk, ty=ty,
+                                     device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"  all {len(mats)} matrices at chunk={chunk}, ty={ty} "
+              f"({what}): {dt:.2f} s on the card; needs up to "
+              f"{tuple(int(n) for n in needs.max(axis=0))}")
+        out[f"all_chunk{chunk}_ty{ty}_s"] = dt
+    return out
+
+
+# ----------------------------------------------------------------------
+# The strip kernels against their plain versions (phase 6)
+# ----------------------------------------------------------------------
+
+def strip_problem(geom, dev, rng):
+    """N_CHECK consecutive views around the mid angle (a projection group
+    as a fold sees one), filtered, with their matrices, and a random
+    volume."""
+    from repro_torch.core.filtering import filter_projections
+    from repro_torch.core.geometry import projection_matrices
+    from repro_torch.core.phantom import forward_project
+
+    k0 = geom.n_proj // 2 - N_CHECK // 2
+    idx = np.arange(k0, k0 + N_CHECK)
+    raw = forward_project(geom, angles=geom.angles[idx], device=dev)
+    imgs = filter_projections(raw, geom, angle_indices=idx, device=dev)
+    mats = torch.tensor(projection_matrices(geom)[idx], device=dev)
+    vol0 = torch.tensor(rng.standard_normal((geom.L,) * 3,
+                                            dtype=np.float32), device=dev)
+    return imgs, mats, vol0
+
+
+def strip_tiling(geom, dev, mats):
+    """The strip kernels' tile (the first of STRIP_TILES whose windows fit
+    a block) and their strip there: every matrix's need, rounded up to 8
+    rows and 32 columns."""
+    from repro_torch.core import clipping
+    from repro_torch.core.backproject import GeomStatic
+    from repro_torch.core.geometry import projection_matrices
+    from repro_torch.kernels.backproject import SMEM_LIMIT, strip_smem_bytes
+    from repro_torch.kernels.backproject_ops import (clamp_tiles,
+                                                     shared_window_dims)
+
+    gs = GeomStatic.of(geom)
+    all_mats = projection_matrices(geom)
+    for ty, chunk in STRIP_TILES:
+        if geom.L % chunk:
+            continue
+        nb, nw = clipping.strip_needs(geom, all_mats, chunk=chunk, ty=ty,
+                                      device=dev).max(axis=0)
+        band, width = int(-(-nb // 8) * 8), int(-(-nw // 32) * 32)
+        sizes = [strip_smem_bytes("db", PBATCH, ty=ty, chunk=chunk,
+                                  band=band, width=width, itemsize=4,
+                                  depth=4)]
+        for group, P in ((mats, len(mats)), (all_mats, PBATCH)):
+            b, w = shared_window_dims(geom, group, ty=ty, chunk=chunk,
+                                      pbatch=P, device=dev)
+            _, _, b, w = clamp_tiles(gs, ty, chunk, b, w)
+            sizes.append(strip_smem_bytes("shared", P, ty=ty, chunk=chunk,
+                                          band=b, width=w, itemsize=4))
+        print(f"  tile ({ty}, {chunk}): strip ({band}, {width}); shared "
+              f"memory per block: K3 depth 4 {sizes[0]} B, K5 slab of "
+              f"{len(mats)} views {sizes[1]} B, of every {PBATCH}-view "
+              f"group {sizes[2]} B (of {SMEM_LIMIT})")
+        if max(sizes) <= SMEM_LIMIT:
+            return (ty, chunk), (band, width)
+    fail("no strip tile's windows fit a block")
+
+
+def check_strip(geom, problem, tile, window):
+    """Phase 6: K3 (depth 2 and 4), K4 and K5 at L = 512 on each wire at
+    P = 1, 4 and 8, each through the wrapper (which checks every window
+    with the planner first) against its plain version on the same wire
+    stack, max |d| = 0, and on float32 against row 1 too; then each
+    kernel's time per launch, and its plain version's."""
+    import repro_torch.kernels.backproject_ref as R
+    from repro_torch.core.backproject import GeomStatic
+    from repro_torch.kernels import backproject_batch
+    from repro_torch.kernels.backproject import (launch_backproject,
+                                                 launch_strip, pitch_stack)
+    from repro_torch.kernels.backproject_ops import (clamp_tiles,
+                                                     shared_window_dims)
+    from repro_torch.kernels.quant import launch_quantize_rows
+
+    imgs, mats, vol0 = problem
+    gs = GeomStatic.of(geom)
+    L = geom.L
+    ty, chunk = tile
+    band, width = window
+    plain_fn = {"strip_db": R.backproject_strip_ref,
+                "strip_micro": R.backproject_micro_ref,
+                "strip_shared": R.backproject_shared_ref}
+    res = {}
+    for wire in ("float32", "bfloat16", "int8"):
+        padded = F.pad(imgs, (1, 1, 1, 1)).contiguous()
+        rows, cols = padded.shape[1:]
+        scales = None
+        if wire == "bfloat16":
+            padded = padded.to(torch.bfloat16)
+        elif wire == "int8":
+            padded, scales = launch_quantize_rows(padded)
+        values = R.decode_wire(padded, scales)
+        pitched = pitch_stack(padded)
+        for key, label, flags in STRIP_VARIANTS:
+            kind = key[len("strip_"):]
+            for P in (1, PBATCH, N_CHECK):
+                if key == "strip_shared":
+                    b, w = shared_window_dims(
+                        geom, mats[:P], ty=ty, chunk=chunk, pbatch=P,
+                        device=imgs.device)
+                    _, _, b, w = clamp_tiles(gs, ty, chunk, b, w)
+                else:
+                    b, w = band, width
+                pr, pc = R.padded_dims(gs, b, w, WIRE_BYTES[wire])
+                win = dict(ty=ty, chunk=chunk, band=b, width=w,
+                           pad_rows=pr, pad_cols=pc)
+                extra = {}
+                if kind == "db":
+                    extra = {"depth": flags["db_depth"]}
+                elif kind == "micro":
+                    extra = {"group": flags["micro_group"],
+                             "gband": flags["micro_band"],
+                             "gwidth": flags["micro_width"]}
+                out = backproject_batch(
+                    vol0.clone(), imgs[:P], mats[:P], geom, pbatch=P,
+                    strip_dtype=wire, ty=ty, chunk=chunk,
+                    **({} if kind == "shared" else dict(band=b, width=w)),
+                    **flags)
+                ref = vol0.clone()
+                a_ev = torch.cuda.Event(enable_timing=True)
+                b_ev = torch.cuda.Event(enable_timing=True)
+                a_ev.record()
+                plain_fn[key](ref, values[:P], mats[:P], gs, **win,
+                              **({} if kind != "micro" else
+                                 dict(group=extra["group"],
+                                      gband=extra["gband"],
+                                      gwidth=extra["gwidth"])))
+                b_ev.record()
+                b_ev.synchronize()
+                plain_ms = a_ev.elapsed_time(b_ev)
+                err = float((out - ref).abs().max())
+                del ref
+                err1 = None
+                if wire == "float32":
+                    row1 = vol0.clone()
+                    launch_backproject(row1, padded[:P].contiguous(),
+                                       mats[:P].contiguous(), z0=0,
+                                       O=gs.O, MM=gs.MM)
+                    err1 = float((out - row1).abs().max())
+                    del row1
+                del out
+                work = vol0.clone()
+                ms = time_ms(lambda: launch_strip(
+                    work, pitched[:P].contiguous(), mats[:P].contiguous(),
+                    kind=kind, z0=0, O=gs.O, MM=gs.MM, n_u=gs.n_u,
+                    n_v=gs.n_v,
+                    scales=None if scales is None else scales[:P]
+                    .contiguous(), **win, **extra), reps=5)
+                del work
+                bms, by = bound_ms(L, L, P, rows, cols, wire)
+                print(f"  {label} {wire} P={P} (band {b}, width {w}): "
+                      f"max|d| vs plain {err:.1e}"
+                      + ("" if err1 is None else
+                         f", vs row 1 {err1:.1e}")
+                      + f"; {ms:.4f} ms per launch (bound {bms:.4f}, "
+                      f"{by}); plain {plain_ms:.1f} ms")
+                if err != 0.0 or (err1 is not None and err1 != 0.0):
+                    fail(f"{label} on {wire} at P={P} differs from its "
+                         f"plain version or from row 1")
+                res[(label, wire, P)] = {"err": err, "err_row1": err1,
+                                         "ms": ms, "plain_ms": plain_ms,
+                                         "bound_ms": bms, "bound_by": by,
+                                         "band": b, "width": w}
+        del padded, values, pitched, scales
+        torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------
+# strategy="auto", served (phase 7)
+# ----------------------------------------------------------------------
+
+def serve_auto(geom, dev, projs, mats, filt):
+    """Phase 7: ``CTFrontDoor(strategy="auto")`` from an empty tune
+    directory: in-situ selection at L = 512 (every candidate's windows
+    checked over all 496 matrices on the card's planner), two full scans
+    served on the winner, each held to a one-shot on the same plan; a
+    second front door resolves from the cache with no sweep."""
+    import repro_torch.kernels.backproject_ops as ops
+    from repro_torch.api import CTFrontDoor, Dispatcher, set_dispatcher
+    from repro_torch.core.backproject import reconstruct
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.tune.sweep import sweep_strategies
+
+    tune = tempfile.mkdtemp(prefix="repro_torch_tune_")
+    os.environ["REPRO_TORCH_TUNE_DIR"] = tune
+    sweeps = []
+
+    def sweep(g, **kw):
+        res = sweep_strategies(g, device=dev, **kw)
+        sweeps.append(res)
+        return res
+
+    set_dispatcher(Dispatcher(sweep_fn=sweep))
+    timers = [LaunchTimer(ops, n) for n in ("launch_backproject",
+                                            "launch_strip",
+                                            "launch_quantize_rows")]
+    for t in timers:
+        t.__enter__()
+    try:
+        torch.cuda.synchronize()
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+        t0 = time.perf_counter()
+        fd = CTFrontDoor(geom, n_slots=2, max_pending=4, policy="fair",
+                         strategy="auto", device=dev)
+        torch.cuda.synchronize()
+        select_s = time.perf_counter() - t0
+        selection = dict(LAUNCHES)
+        n_timed = [len(t.events) for t in timers]
+
+        async def both():
+            return await asyncio.gather(
+                _client(fd, projs, mats, "clinic-a", 3),
+                _client(fd, projs, mats, "clinic-b", 4))
+
+        t0 = time.perf_counter()
+        vols = asyncio.run(both())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    finally:
+        for t in timers:
+            t.__exit__()
+    serve_ms = [ms for t, n in zip(timers, n_timed) for ms in t.ms()[n:]]
+    engine = fd._backend.engine
+    plan = engine.exec_plan
+    res = sweeps[0]
+    print(f"  in-situ selection: {select_s:.2f} s wall, "
+          f"{len(res.timings)} candidates timed, {len(res.skipped)} "
+          f"skipped; launches {dict((k, v) for k, v in selection.items() if v)}")
+    for t in sorted(res.timings, key=lambda t: t.us_per_call):
+        print(f"    {t.us_per_call:10.1f} us/projection  {t.label}")
+    for label, reason in res.skipped:
+        print(f"    skipped {label}: {reason[:160]}")
+    kernel = plan.pallas_opts() if plan.use_pallas else None
+    print(f"  winner: {plan.label}; "
+          + (f"folds through the tuned kernel config {kernel}"
+             if kernel else "row 1 (no strip kernel beat the strategies)"))
+    for v in vols:
+        if v.shape != (geom.L,) * 3 or not bool(torch.isfinite(v).all()):
+            fail("auto-served volume is not a finite (L, L, L) volume")
+    folds = engine.stats["fold_launches"]
+    served = {k: launches[k] - selection[k] for k in launches}
+    print(f"  served 2 scans in {wall:.3f} s; launches while serving "
+          f"{dict((k, v) for k, v in served.items() if v)}; engine stats "
+          f"{engine.stats}")
+    if folds != 2 * -(-geom.n_proj // engine.pbatch):
+        fail(f"{folds} folds for 2 scans at pbatch={engine.pbatch}")
+    if sum(v for k, v in served.items() if k != "quantize_rows") != folds:
+        fail(f"served launches {served} do not match {folds} folds")
+    if plan.use_pallas and engine.stats["pallas_folds"] != 2 * geom.n_proj:
+        fail("the tuned kernel did not fold every projection")
+    # Every kernel the sweep timed was launched by it.
+    from repro_torch.core.backproject import GeomStatic, strip_wire_dtype
+    from repro_torch.kernels.backproject import (WIRE_LAUNCH_KEYS,
+                                                 strip_launch_key)
+    from repro_torch.kernels.backproject_ops import resolve_variant
+
+    for t in res.timings:
+        opts = dict(t.opts)
+        if t.strategy != "pallas":
+            continue
+        wire = strip_wire_dtype(opts.get("strip_dtype", "float32")) \
+            or torch.float32
+        variant = resolve_variant(GeomStatic.of(geom), **opts)["variant"]
+        key = (WIRE_LAUNCH_KEYS[wire] if variant is None else
+               strip_launch_key(variant, wire, int(opts.get("pbatch", 1))))
+        if not selection[key]:
+            fail(f"the sweep timed {t.label} but never launched {key}")
+    one_shot = reconstruct(filt, mats, geom, plan=plan, device=dev)
+    errs = []
+    for i, v in enumerate(vols):
+        top = float(v.abs().max())
+        err = float((v - one_shot).abs().max())
+        errs.append(err)
+        print(f"  auto-served scan {i} vs one-shot on the same plan: "
+              f"max|d| {err:.3e} (bound {TOL_STREAM * top:.3e})")
+        if not err <= TOL_STREAM * top:
+            fail("auto-served volume disagrees with the one-shot "
+                 "reconstruction on the same plan")
+    del one_shot, vols
+    n_sweeps = len(sweeps)
+    t0 = time.perf_counter()
+    fd2 = CTFrontDoor(geom, n_slots=1, policy="fair", strategy="auto",
+                      device=dev)
+    hit_s = time.perf_counter() - t0
+    if len(sweeps) != n_sweeps or fd2._backend.engine.exec_plan != plan:
+        fail("a second auto front door did not resolve from the cache")
+    print(f"  second front door: cache hit in {hit_s:.3f} s, no sweep, "
+          f"same plan")
+    del fd2, fd, engine
+    torch.cuda.empty_cache()
+    return {"select_s": select_s, "wall_s_2_scans": wall,
+            "winner": plan.label, "kernel": kernel,
+            "timings": [t.as_dict() for t in res.timings],
+            "skipped": res.skipped, "selection_launches": selection,
+            "served_launches": served, "served_launch_ms": serve_ms,
+            "vs_one_shot": errs, "cache_hit_s": hit_s}
+
+
+# ----------------------------------------------------------------------
+# Each strip kernel as a tuned plan folds it (phase 8)
+# ----------------------------------------------------------------------
+
+def serve_tuned(geom, dev, mats, filt, v32, tile, window):
+    """Phase 8: a full scan folded through each strip kernel as a tuned
+    decision names it (``reconstruct(plan=...)`` with the kernel config
+    in the plan's ``pallas`` field and ``use_pallas``), at P = 4 and, for
+    K3 and K4, P = 1 (TPU kernel rows 7 and 8); and through row 1 at
+    P = 1 (row 2).  Each volume is held to the float32 served volume of
+    phase 3, and each kernel launched once per batch."""
+    from repro_torch.api import ExecutionPlan
+    from repro_torch.core.backproject import reconstruct
+    from repro_torch.kernels import LAUNCHES
+
+    ty, chunk = tile
+    band, width = window
+    cases = [("backproject", 1, None)]
+    for key, label, flags in STRIP_VARIANTS:
+        if label == "db4":
+            continue
+        cases.append((key, PBATCH, flags))
+        if key != "strip_shared":
+            cases.append((key + "_p1", 1, flags))
+    out = {}
+    for key, P, flags in cases:
+        plan = ExecutionPlan.explicit("scalar", pbatch=P)
+        if flags is not None:
+            tile = dict(ty=ty, chunk=chunk, pbatch=P, **flags)
+            if "shared_window" not in flags:
+                tile.update(band=band, width=width)
+            plan = plan._replace(pallas=tuple(sorted(tile.items())),
+                                 use_pallas=True)
+        torch.cuda.synchronize()
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        v = reconstruct(filt, mats, geom, plan=plan, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = LAUNCHES[key]
+        top = float(v32.abs().max())
+        err = float((v - v32).abs().max())
+        print(f"  {key} (P={P}): {n} launches, {wall:.2f} s for "
+              f"{geom.n_proj} views; vs the served float32 volume max|d| "
+              f"{err:.3e} (bound {TOL_STREAM * top:.3e})")
+        if n != -(-geom.n_proj // P) or sum(LAUNCHES.values()) != n:
+            fail(f"{key}: {dict(LAUNCHES)} launches for one scan at P={P}")
+        if not err <= TOL_STREAM * top:
+            fail(f"{key}: the scan disagrees with the served volume")
+        out[key] = {"launches": n, "wall_s": wall, "err": err, "P": P}
+        del v
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -471,8 +969,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     build_s = build_all()
-    print(f"phase 1: built the backproject and quant kernels in "
-          f"{build_s:.2f} s")
+    print(f"phase 1: built the backproject, quant and backproject_strip "
+          f"kernels in {build_s:.2f} s")
     record = run(Geometry(), torch.device("cuda", 0), card, build_s)
     print(card)
     print(json.dumps(record))
@@ -483,7 +981,7 @@ def main() -> int:
 
 
 def run(geom, dev, card: str, build_s: float) -> dict:
-    """Phases 2-4 on ``geom``; prints the details and returns the
+    """Phases 2-8 on ``geom``; prints the details and returns the
     ``kernels`` record."""
     from repro_torch.core.filtering import filter_projections
     from repro_torch.core.geometry import projection_matrices
@@ -540,6 +1038,26 @@ def run(geom, dev, card: str, build_s: float) -> dict:
           f"(float32: {wall / 2:.3f} s)")
     print(f"  bfloat16 one-shot: kernel median {med16:.4f} ms per launch")
 
+    print("phase 5: the strip planner on the card")
+    planner = check_planner(geom, dev)
+
+    print(f"phase 6: the strip kernels K3, K4, K5 vs their plain versions "
+          f"at L={geom.L}")
+    sproblem = strip_problem(geom, dev, np.random.default_rng(SEED + 1))
+    tile, window = strip_tiling(geom, dev, sproblem[1])
+    print(f"  tile {tile}, strip {window} (every matrix's need)")
+    strip = check_strip(geom, sproblem, tile, window)
+    del sproblem
+    torch.cuda.empty_cache()
+
+    print("phase 7: CTFrontDoor(strategy='auto') from an empty tune "
+          "directory")
+    auto = serve_auto(geom, dev, projs, mats, filt)
+
+    print("phase 8: a scan through each strip kernel as a tuned plan "
+          "names it, and through row 1 at P=1")
+    tuned = serve_tuned(geom, dev, mats, filt, v32, tile, window)
+
     # No single PyTorch call computes any of these kernels: grid_sample
     # has no 1/w^2 weight and no accumulation into the volume, and no
     # library call runs the error-feedback encode.
@@ -561,6 +1079,31 @@ def run(geom, dev, card: str, build_s: float) -> dict:
                   "launches": launches_, "max_abs_err": werr, "ms": ms,
                   "plain_ms": wplain[PBATCH], "bound_ms": wt[PBATCH][1],
                   "bound_by": wt[PBATCH][2], "library_ms": None})
+        if wire == "float32":
+            k.append({"name": "backproject_one", "route": "cuda",
+                      "source": src + "backproject.cu",
+                      "replaces": "src/repro/kernels/backproject.py:206",
+                      "launches": tuned["backproject"]["launches"],
+                      "max_abs_err": err, "ms": timing[1][0],
+                      "plain_ms": plain_ms[1], "bound_ms": timing[1][1],
+                      "bound_by": timing[1][2], "library_ms": None})
+    for name, label, P, line in (
+            ("strip_db", "db2", PBATCH, 594),
+            ("strip_micro", "micro", PBATCH, 714),
+            ("strip_shared", "shared", PBATCH, 758),
+            ("strip_db_p1", "db2", 1, 376),
+            ("strip_micro_p1", "micro", 1, 319)):
+        labels = ("db2", "db4") if label == "db2" else (label,)
+        r = strip[(label, "float32", P)]
+        k.append({"name": name, "route": "cuda",
+                  "source": src + "backproject_strip.cu",
+                  "replaces": f"src/repro/kernels/backproject.py:{line}",
+                  "launches": tuned[name]["launches"],
+                  "max_abs_err": max(v["err"] for key, v in strip.items()
+                                     if key[0] in labels),
+                  "ms": r["ms"], "plain_ms": r["plain_ms"],
+                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                  "library_ms": None})
     k.append({"name": "quantize_rows", "route": "cuda",
               "source": src + "quant.cu", "replaces": "src/repro/quant.py:95",
               "launches": w["launches"]["quantize_rows"],
@@ -594,7 +1137,14 @@ def run(geom, dev, card: str, build_s: float) -> dict:
                         "psnr_vs_f32_and_drop": w["scores"],
                         "host_window_check_s": w["host_check_s"]},
         "one_shot_bf16": {"launch_ms_median": med16, "wall_s": w["wall16"],
-                          "psnr_vs_f32_and_drop": w["score16"]}}}))
+                          "psnr_vs_f32_and_drop": w["score16"]},
+        "planner": planner, "strip_tile": tile, "strip_window": window,
+        "strip": {"/".join(map(str, key)): v for key, v in strip.items()},
+        "auto": {k_: v for k_, v in auto.items()
+                 if k_ != "served_launch_ms"},
+        "auto_served_launch_ms_median": statistics.median(
+            auto["served_launch_ms"]),
+        "tuned": tuned}}))
     return {"kernels": k}
 
 

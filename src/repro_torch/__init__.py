@@ -7,15 +7,19 @@ package never imports it (nor JAX).  The public surface is
 """
 
 from .api import (POLICIES, AdmissionPolicy, Backpressure, CTFrontDoor,
-                  DeadlinePolicy, ExecutionPlan, FairSharePolicy,
-                  FIFOPolicy, Geometry, PolicyContext, ProjectionChunk,
-                  ReconstructionEngine, ScanAborted, ScanState, ScanTicket,
-                  SRSFPolicy, filter_projections, reconstruct)
+                  DeadlinePolicy, Dispatcher, ExecutionPlan,
+                  FairSharePolicy, FIFOPolicy, Geometry, PolicyContext,
+                  ProjectionChunk, ReconstructionEngine, ScanAborted,
+                  ScanState, ScanTicket, SRSFPolicy, TunedConfig, autotune,
+                  filter_projections, get_dispatcher, reconstruct,
+                  set_dispatcher)
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "Geometry", "filter_projections", "reconstruct", "ExecutionPlan",
+    "Geometry", "filter_projections", "reconstruct", "Dispatcher",
+    "ExecutionPlan", "get_dispatcher", "set_dispatcher", "TunedConfig",
+    "autotune",
     "ProjectionChunk",
     "ReconstructionEngine", "ScanState", "CTFrontDoor", "ScanTicket",
     "Backpressure", "ScanAborted", "AdmissionPolicy", "FIFOPolicy",

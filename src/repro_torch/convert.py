@@ -73,10 +73,21 @@ def rowquant_from_reference(rq, *, device="cuda") -> RowQuant:
 
 def plan_from_reference(fields: dict) -> ExecutionPlan:
     """A port :class:`ExecutionPlan` from the reference plan's
-    ``as_dict()``, revalidated as an explicit plan.  A tuned kernel
-    decision (``pallas`` set) is not ported and raises."""
-    if fields.get("pallas") or fields.get("use_pallas"):
-        raise ValueError("tuned kernel decisions (pallas=...) are not "
-                         "ported; carry an explicit plan")
-    return ExecutionPlan.explicit(fields["strategy"], fields["opts"],
+    ``as_dict()``: the strategy part revalidated as an explicit plan,
+    the tuned kernel config (``pallas``, ``use_pallas``) carried as it
+    is.  A kernel config key the port's kernels do not take raises."""
+    from .tune.cache import _PALLAS_KEYS
+
+    plan = ExecutionPlan.explicit(fields["strategy"], fields["opts"],
                                   fields["pbatch"])
+    pallas = fields.get("pallas")
+    if not pallas:
+        if fields.get("use_pallas"):
+            raise ValueError("use_pallas=True needs a kernel config")
+        return plan
+    stray = sorted(set(pallas) - set(_PALLAS_KEYS))
+    if stray:
+        raise ValueError(f"kernel config keys {stray} are not taken by the "
+                         f"port's kernels {_PALLAS_KEYS}")
+    return plan._replace(pallas=tuple(sorted(pallas.items())),
+                         use_pallas=bool(fields.get("use_pallas")))

@@ -27,14 +27,16 @@ three parts:
   weight and the voxel update.
 
 On a CPU volume the folds run the named strategy here.  On a CUDA volume
-every strategy folds through the hand-written kernel
+every strategy folds through the hand-written kernel of row 1
 (:mod:`repro_torch.kernels.backproject_ops`), which reads the four taps
 straight from the padded image: the window options (``chunk``, ``band``,
 ``width``, ``strips_per_block``, ``group``, ``gband``, ``gwidth``,
 ``groups_per_block``, ``vox_block``) are carried in the plan but cannot
 change a result there, so they are checked against the planner only on
 the CPU (:func:`check_windows`); ``strip_dtype`` picks the kernel's
-wire.
+wire.  A plan whose tuned kernel beat the strategies (``use_pallas``,
+:mod:`repro_torch.dispatch`) folds through that kernel on either
+device, and its staged windows are checked on both.
 
 The reference returns a new volume; the port updates the volume tensor
 **in place** (and returns it), so a fold never holds two volumes.
@@ -42,10 +44,8 @@ The reference returns a new volume; the port updates the volume tensor
 
 from __future__ import annotations
 
-import hashlib
 from typing import NamedTuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -472,11 +472,30 @@ def _explicit_plan(strategy: str, opts: dict, pbatch: int | None = None):
     return ExecutionPlan.explicit(strategy, opts, pbatch)
 
 
-def _fold(volume, images, mats, gs: GeomStatic, plan, z0: int):
+def _resolve_plan(geom, strategy: str, opts: dict, pbatch: int | None):
+    """``strategy="auto"`` through the process dispatcher (cache hit,
+    in-situ selection or the logged fallback); any other name strictly
+    (:meth:`repro_torch.dispatch.ExecutionPlan.explicit`)."""
+    if strategy == "auto":
+        from ..dispatch import get_dispatcher
+
+        return get_dispatcher().resolve(geom, "auto", opts, pbatch=pbatch)
+    return _explicit_plan(strategy, opts, pbatch)
+
+
+def _fold(volume, images, mats, geom, plan, z0: int):
     if not torch.is_tensor(volume) or volume.dtype != torch.float32:
         raise TypeError("volume must be a float32 tensor (updated in place)")
+    gs = _gs(geom)
     images = as_f32(images, volume.device)
     mats = as_f32(mats, volume.device)
+    if plan.use_pallas:
+        # The tuned kernel beat the strategies: fold through it, at the
+        # plan's depth; the caller checked its windows (check_windows).
+        from ..kernels.backproject_ops import backproject_batch as kernel
+
+        return kernel(volume, images, mats, geom, z0=z0, validate=False,
+                      **dict(plan.pallas_opts(), pbatch=plan.pbatch))
     if volume.is_cuda:
         from ..kernels.backproject_ops import backproject_batch as kernel
 
@@ -506,7 +525,7 @@ def backproject_one(volume, image, A, geom: Geometry | GeomStatic,
     plan = _explicit_plan(strategy, opts, 1)
     return _fold(volume, image[None],
                  torch.as_tensor(A, dtype=torch.float32).reshape(1, 3, 4),
-                 _gs(geom), plan, 0)
+                 geom, plan, 0)
 
 
 def backproject_batch(volume, images, mats, geom: Geometry | GeomStatic,
@@ -520,13 +539,13 @@ def backproject_batch(volume, images, mats, geom: Geometry | GeomStatic,
     validated here (see :func:`validate_strip_opts`).
     """
     plan = _explicit_plan(strategy, opts, int(pbatch))
-    return _fold(volume, images, mats, _gs(geom), plan, 0)
+    return _fold(volume, images, mats, geom, plan, 0)
 
 
 def fold_projections(volume, images, mats, geom: Geometry | GeomStatic,
                      strategy: str = "scalar",
                      pbatch: int = DEFAULT_PBATCH, z0: int = 0, *,
-                     plan=None, **opts):
+                     plan=None, validate: bool = True, **opts):
     """Incremental fold: add a projection *chunk* to an existing volume,
     in place.
 
@@ -536,38 +555,30 @@ def fold_projections(volume, images, mats, geom: Geometry | GeomStatic,
     the reconstruction, in any arrival order (fp32 summation order
     differs, so cross-order agreement is ~1e-5, not bitwise).  A
     pre-built ``plan`` (:class:`repro_torch.dispatch.ExecutionPlan`)
-    replaces ``strategy``/``pbatch``/``opts``.  On a CPU volume the
-    windows are validated against the host planner when ``geom`` is a
-    full :class:`Geometry` (see :func:`check_windows`).
+    replaces ``strategy``/``pbatch``/``opts``.  With a full
+    :class:`Geometry` and ``validate=True`` the windows are checked
+    against the planner where they are read (see :func:`check_windows`);
+    pass ``validate=False`` where the chunk's matrices were checked
+    before.
     """
     if plan is None:
         plan = _explicit_plan(strategy, opts, int(pbatch))
-    if isinstance(geom, Geometry) and torch.is_tensor(volume):
+    if validate and isinstance(geom, Geometry) and torch.is_tensor(volume):
         check_windows(geom, mats, plan, volume.device)
-    return _fold(volume, images, mats, _gs(geom), plan, int(z0))
-
-
-# Memo of (geometry, strategy, window, matrices) combinations already
-# proven safe: the host planner is paid once per distinct problem.
-_VALIDATED_STRIPS: set = set()
-
-
-def _host_mats(matrices) -> np.ndarray:
-    if torch.is_tensor(matrices):
-        matrices = matrices.detach().cpu().numpy()
-    return np.asarray(matrices, np.float64).reshape(-1, 3, 4)
+    return _fold(volume, images, mats, geom, plan, int(z0))
 
 
 def validate_strip_opts(geom: Geometry, matrices, strategy: str,
-                        opts: dict) -> None:
+                        opts: dict, *, device=None) -> None:
     """Planner-backed check that ``strip``/``strip2`` windows cover
     every chunk's taps.
 
     A tap outside a window selects an all-zero one-hot row and is
     dropped silently; this raises ``ValueError`` with the required
     window sizes instead.  No-op for strategies without windows.  The
-    planner (:func:`repro_torch.core.clipping.plan_strips`) runs on the
-    host in float64, once per matrix; results are memoised.
+    planner (:func:`repro_torch.core.clipping.strip_needs`) runs in
+    float64 on ``device`` (default: where the matrices lie) and
+    memoises each matrix's needs.
     """
     if strategy == "strip":
         chunk = _divisor_at_most(geom.L, int(opts.get("chunk", 128)))
@@ -581,18 +592,10 @@ def validate_strip_opts(geom: Geometry, matrices, strategy: str,
         what = f"strip2 (group={chunk}, gband={band}, gwidth={width})"
     else:
         return
-    mats = _host_mats(matrices)
-    key = (GeomStatic.of(geom), strategy, chunk, band, width,
-           hashlib.sha1(mats.tobytes()).hexdigest())
-    if key in _VALIDATED_STRIPS:
-        return
-    from .clipping import plan_strips
+    from .clipping import strip_needs
 
-    need_band = need_width = 0
-    for A in mats:
-        plan = plan_strips(geom, A, chunk=chunk)
-        need_band = max(need_band, plan.required_band)
-        need_width = max(need_width, plan.required_width)
+    need_band, need_width = (int(n) for n in strip_needs(
+        geom, matrices, chunk=chunk, device=device).max(axis=0))
     # A full-detector window never loses a tap: the requirement
     # saturates at the padded image.
     need_band = min(need_band, geom.n_v + 2)
@@ -603,18 +606,27 @@ def validate_strip_opts(geom: Geometry, matrices, strategy: str,
             f"geometry; need at least (band={need_band}, "
             f"width={need_width}) — undersized windows drop taps "
             f"silently")
-    if len(_VALIDATED_STRIPS) >= 4096:   # bound a long-lived process
-        _VALIDATED_STRIPS.clear()
-    _VALIDATED_STRIPS.add(key)
 
 
 def check_windows(geom: Geometry, matrices, plan, device) -> None:
-    """:func:`validate_strip_opts` for ``plan`` where its windows are
-    read: on the CPU.  On a CUDA device every strategy folds through the
-    kernel, which reads taps directly, so no window can drop a tap there
-    and the host planner (seconds per matrix at L=512) is not run."""
-    if torch.device(device).type == "cpu":
-        validate_strip_opts(geom, matrices, plan.strategy, plan.jnp_opts())
+    """The window check ``plan`` needs where its windows are read.
+
+    A plan that folds through a tuned strip kernel (``use_pallas``)
+    reads that kernel's staged windows on either device: they are
+    checked on ``device``'s planner
+    (:func:`repro_torch.kernels.backproject_ops.check_variant_windows`).
+    Otherwise the strategy's windows are read only on the CPU; on a CUDA
+    device every strategy folds through row 1, which reads taps
+    directly, so nothing is checked there."""
+    dev = torch.device(device)
+    if plan.use_pallas:
+        from ..kernels.backproject_ops import check_variant_windows
+
+        check_variant_windows(geom, matrices, plan.pallas_opts(),
+                              device=dev)
+    elif dev.type == "cpu":
+        validate_strip_opts(geom, matrices, plan.strategy, plan.jnp_opts(),
+                            device=dev)
 
 
 def reconstruct(projections, matrices, geom: Geometry, *,
@@ -623,21 +635,23 @@ def reconstruct(projections, matrices, geom: Geometry, *,
                 validate: bool = True, device="cuda", **opts):
     """Full reconstruction: stream every *filtered* projection
     ``(n_proj, n_v, n_u)`` with its ``(n_proj, 3, 4)`` matrix into the
-    volume, ``pbatch`` (default :data:`DEFAULT_PBATCH`) per volume pass.
+    volume, ``pbatch`` (default: the plan's) per volume pass.
 
-    ``strategy`` and ``opts`` are validated strictly
+    ``strategy="auto"`` resolves through the process dispatcher
+    (:mod:`repro_torch.dispatch`: a cached decision, in-situ selection,
+    or the logged ``strip2`` fallback); any other ``strategy`` and
+    ``opts`` are validated strictly
     (:meth:`repro_torch.dispatch.ExecutionPlan.explicit`); a pre-built
-    ``plan`` replaces them.  ``validate=True`` checks ``strip``/
-    ``strip2`` windows against the host planner first on the CPU
-    (:func:`check_windows`; pass ``False`` where the windows were checked
-    before); on the card the windows cannot drop taps and are not
-    checked.  ``volume`` (on ``device``) is updated in place; ``None``
-    starts from zeros on ``device``.
+    ``plan`` replaces them.  ``validate=True`` checks the windows the
+    fold reads against the planner first (:func:`check_windows`; pass
+    ``False`` where the windows were checked before).  ``volume`` (on
+    ``device``) is updated in place; ``None`` starts from zeros on
+    ``device``.
     """
     dev = resolve_device(device)
     gs = GeomStatic.of(geom)
     if plan is None:
-        plan = _explicit_plan(strategy, opts, pbatch)
+        plan = _resolve_plan(geom, strategy, opts, pbatch)
     if validate:
         check_windows(geom, matrices, plan, dev)
     if volume is None:
@@ -645,4 +659,4 @@ def reconstruct(projections, matrices, geom: Geometry, *,
                              device=dev)
     elif volume.device != dev:
         raise ValueError(f"volume lies on {volume.device}, not {dev}")
-    return _fold(volume, projections, matrices, gs, plan, 0)
+    return _fold(volume, projections, matrices, geom, plan, 0)

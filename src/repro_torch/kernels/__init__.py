@@ -3,7 +3,9 @@ kernel (``csrc/``), a wrapper that checks, pads and launches it, and a
 plain PyTorch version (``*_ref``) that the CPU path runs.
 
 The kernels: ``csrc/backproject.cu`` (back projection, one instance
-per projection wire: float32, bfloat16, int8) and ``csrc/quant.cu``
+per projection wire: float32, bfloat16, int8), ``csrc/backproject_strip.cu``
+(the strip-staged back projections K3 ``strip_db``, K4 ``strip_micro``
+and K5 ``strip_shared``, on the same three wires) and ``csrc/quant.cu``
 (the int8 row encoder).  Nothing is built or loaded at import time; the
 first launch builds.
 """

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library
 with a plain C interface and loaded with :mod:`ctypes`.  The library
 lands in ``build/repro_torch/`` at the root of the checkout, named by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is loaded as it is.  Nothing here runs at import time.
+hash of the source, the headers beside it and the flags, so an edited
+source rebuilds and an unchanged one is loaded as it is.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -59,8 +59,10 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
     out = build_dir() / f"lib{name}_{digest[:16]}.so"
     if not out.is_file():
         out.parent.mkdir(parents=True, exist_ok=True)

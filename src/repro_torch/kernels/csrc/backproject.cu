@@ -36,10 +36,9 @@
 // in the reference).
 //
 // Every float operation is written with explicit round-to-nearest
-// intrinsics in the order of the plain PyTorch version, so no multiply
-// and add contract into an FMA: the kernel's taps and weights agree
-// bitwise with repro_torch/kernels/backproject_ref.py.  Build without
-// --use_fast_math: 1 / w must stay an IEEE division.
+// intrinsics in the order of the plain PyTorch version
+// (backproject_common.cuh), so the kernel's taps and weights agree
+// bitwise with repro_torch/kernels/backproject_ref.py.
 //
 // Bound per launch: the larger of FLOPs / 67 TFLOP/s (FP32 outside the
 // tensor cores) and bytes / 3.35 TB/s (volume read + written once,
@@ -55,21 +54,11 @@
 
 #include <cstdint>
 
+#include "backproject_common.cuh"
+
 namespace {
 
-constexpr float kEpsW = 1e-6f;
-
-__device__ __forceinline__ float dot_row(const float* a, float wx, float wy,
-                                         float wz) {
-  // ((wx a0 + wy a1) + wz a2) + a3, each product and sum rounded.
-  float t = __fadd_rn(__fmul_rn(wx, a[0]), __fmul_rn(wy, a[1]));
-  t = __fadd_rn(t, __fmul_rn(wz, a[2]));
-  return __fadd_rn(t, a[3]);
-}
-
-__device__ __forceinline__ bool inside(int i, int n) {
-  return i >= 0 && i < n;
-}
+using bp::inside;
 
 // Tap loaders: taps (r, c) and (r, c + 1) of projection p, 0 outside
 // the (rows, cols) padded buffer.
@@ -136,19 +125,19 @@ __global__ void backproject_batch_kernel(float* __restrict__ vol,
   const int zi = blockIdx.z;
   if (x >= L || y >= L) return;
 
-  const float wx = __fadd_rn(O, __fmul_rn(static_cast<float>(x), MM));
-  const float wy = __fadd_rn(O, __fmul_rn(static_cast<float>(y), MM));
-  const float wz = __fadd_rn(O, __fmul_rn(static_cast<float>(z0 + zi), MM));
+  const float wx = bp::world(x, O, MM);
+  const float wy = bp::world(y, O, MM);
+  const float wz = bp::world(z0 + zi, O, MM);
 
   const size_t vidx = (static_cast<size_t>(zi) * L + y) * L + x;
   float acc = vol[vidx];
 
   for (int p = 0; p < P; ++p) {
     const float* A = smats + p * 12;
-    const float u = dot_row(A, wx, wy, wz);
-    const float v = dot_row(A + 4, wx, wy, wz);
-    const float w = dot_row(A + 8, wx, wy, wz);
-    const float r = w > kEpsW ? __fdiv_rn(1.0f, w) : 0.0f;
+    const float u = bp::dot_row(A, wx, wy, wz);
+    const float v = bp::dot_row(A + 4, wx, wy, wz);
+    const float w = bp::dot_row(A + 8, wx, wy, wz);
+    const float r = bp::recip_w(w);
     const float ix = __fmul_rn(u, r);
     const float iy = __fmul_rn(v, r);
 
@@ -167,13 +156,7 @@ __global__ void backproject_batch_kernel(float* __restrict__ vol,
     float bl, br, tl, tr;
     taps.row(p, rr, c, rows, cols, bl, br);
     taps.row(p, rr + 1, c, rows, cols, tl, tr);
-
-    const float ox = __fsub_rn(1.0f, sx);
-    const float valb = __fadd_rn(__fmul_rn(ox, bl), __fmul_rn(sx, br));
-    const float valt = __fadd_rn(__fmul_rn(ox, tl), __fmul_rn(sx, tr));
-    const float val = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, sy), valb),
-                                __fmul_rn(sy, valt));
-    acc = __fadd_rn(acc, __fmul_rn(val, __fmul_rn(r, r)));
+    acc = bp::fold_taps(acc, bl, br, tl, tr, sx, sy, r);
   }
   vol[vidx] = acc;
 }

@@ -285,10 +285,11 @@ class CTFrontDoor:
     ``open_scan`` raises :class:`Backpressure` (with ``retry_after``)
     when no slot is free and ``max_pending`` tickets already wait —
     bounded queues all the way down.  A :class:`ReconstructionEngine` on
-    ``device`` is built from ``engine_opts`` (``strategy``,
-    ``strip_dtype`` and the window options, ``pbatch``, ``validate``,
-    ``plan``, ...), or pass a prebuilt one as ``engine=``; ``mesh=``
-    raises until the sharded backend is ported.
+    ``device`` is built from ``engine_opts`` (``strategy``, including
+    ``"auto"``, which the engine resolves through the dispatcher at
+    construction, ``strip_dtype`` and the window options, ``pbatch``,
+    ``validate``, ``plan``, ...), or pass a prebuilt one as
+    ``engine=``; ``mesh=`` raises until the sharded backend is ported.
     """
 
     def __init__(self, geom: Geometry, *, n_slots: int = 4,

@@ -14,8 +14,10 @@ The port's counterpart of ``repro.streaming.engine`` (DESIGN.md §8):
   port folds each ready slot **in place** on that slot's view of the
   stack: through the CUDA kernel on a CUDA device, one launch per ready
   slot (plus one encode on the int8 wire), through the named strategy
-  on the CPU.  Slots that are not ready are never touched, which is the
-  mask;
+  on the CPU.  When the plan's tuned kernel beat the strategies
+  (``plan.use_pallas``), every fold runs that kernel config instead
+  (its CUDA kernel on the card, its plain version on the CPU).  Slots
+  that are not ready are never touched, which is the mask;
 * finished scans retire, their slot is zeroed in place and refilled
   from the admission queue.
 
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from .._device import as_f32, resolve_device
-from ..core.backproject import (GeomStatic, check_windows,
+from ..core.backproject import (GeomStatic, _resolve_plan, check_windows,
                                 fold_projections)
 from ..core.filtering import apply_filter, make_filter_plan
 from ..core.geometry import Geometry
@@ -98,17 +100,22 @@ class ReconstructionEngine:
     """Accept projection chunks in arrival order; serve volumes.
 
     ``strategy`` and ``**opts`` name the back projection and its options
-    (validated strictly into an :class:`ExecutionPlan`, or pass a
-    pre-built ``plan=``).  On a CUDA ``device`` every fold runs the
-    hand-written kernel on the plan's wire (``strip_dtype``: float32,
-    bfloat16, or int8 codes encoded once per fold); on ``device="cpu"``
-    the named strategy's plain sampler.  On the CPU ``validate=True``
-    checks ``strip``/``strip2`` windows against the host planner for
-    every submitted chunk (memoised per matrix set); the kernel reads
-    taps directly, so on the card the windows cannot drop taps and are
-    not checked.  ``pbatch`` projections fold per volume pass (default
-    4).
-    The slot volumes are updated in place.
+    (validated strictly into an :class:`ExecutionPlan`), or pass a
+    pre-built ``plan=``.  ``strategy="auto"`` resolves through the
+    process dispatcher (:mod:`repro_torch.dispatch`) here, at
+    construction: a cached decision, or in-situ selection, whose timing
+    problem is made from the geometry.  On a CUDA ``device`` every fold
+    runs a hand-written kernel: the plan's tuned kernel config when it
+    beat the strategies (``plan.use_pallas``; counted in
+    ``stats["pallas_folds"]``), else row 1 on the plan's wire
+    (``strip_dtype``: float32, bfloat16, or int8 codes encoded once per
+    fold); on ``device="cpu"`` the same choice runs the plain versions
+    and the named strategy's sampler.  ``validate=True`` checks every
+    submitted chunk's windows where they are read (memoised per matrix):
+    the strategy's windows on the CPU, a tuned strip kernel's on either
+    device.  ``pbatch`` projections fold per volume pass (default: the
+    tuned kernel's depth when it runs, else the plan's).  The slot
+    volumes are updated in place.
     """
 
     def __init__(self, geom: Geometry, *, n_slots: int = 4,
@@ -117,12 +124,18 @@ class ReconstructionEngine:
                  plan: ExecutionPlan | None = None, device="cuda",
                  **opts):
         if plan is None:
-            plan = ExecutionPlan.explicit(strategy, opts, pbatch)
+            plan = _resolve_plan(geom, strategy, opts, pbatch)
         self.device = resolve_device(device)
         self.geom = geom
         self.gs = GeomStatic.of(geom)
-        self.pbatch = max(1, int(pbatch) if pbatch is not None
-                          else plan.pbatch)
+        if pbatch is not None:
+            eff = int(pbatch)
+        elif plan.use_pallas:
+            # The kernel decision was timed at its own batch depth.
+            eff = int(plan.pallas_opts().get("pbatch", plan.pbatch))
+        else:
+            eff = plan.pbatch
+        self.pbatch = max(1, eff)
         self.exec_plan = plan._replace(pbatch=self.pbatch)
         self.strategy = plan.strategy
         self.opts = plan.jnp_opts()
@@ -136,8 +149,8 @@ class ReconstructionEngine:
         self.queue: list[int] = []
         self.slot_history: list[tuple[int, int]] = []  # (slot, sid)
         # ``pallas_folds`` keeps the reference's name: projections folded
-        # through the hand-written kernel.  ``fold_launches`` counts the
-        # per-slot volume passes (kernel launches on a CUDA device).
+        # through the plan's tuned kernel config.  ``fold_launches``
+        # counts the per-slot volume passes.
         self.stats = {"folds": 0, "fold_ticks": 0, "retired": 0,
                       "pallas_folds": 0, "aborted": 0, "fold_launches": 0}
         self._next_sid = 0
@@ -247,12 +260,13 @@ class ReconstructionEngine:
                 ready.append((slot, scan))
         for slot, scan in ready:
             imgs, ms, n = self._take_batch(scan)
-            fold_projections(self._volumes[slot], imgs, ms, self.gs,
-                             plan=self.exec_plan)
+            # The chunk's windows were checked at submit.
+            fold_projections(self._volumes[slot], imgs, ms, self.geom,
+                             plan=self.exec_plan, validate=False)
             scan.folded += n
             self.stats["folds"] += n
             self.stats["fold_launches"] += 1
-            if self.device.type == "cuda":
+            if self.exec_plan.use_pallas:
                 self.stats["pallas_folds"] += n
         if ready:
             self.stats["fold_ticks"] += 1

@@ -173,14 +173,15 @@ def test_cpu_path_launches_no_kernel():
 
 
 # The ids of the slice-1 cases stay: "strip2" and "gather" are ported
-# now, so those cases hold what each still refuses.
+# now, so those cases hold what each still refuses; "auto" is resolved
+# by the dispatcher, not by the explicit fold, which names it so.
 @pytest.mark.parametrize("strategy,opts,match", [
     pytest.param("strip2", {"ty": 8}, "unknown option", id="strip2"),
     pytest.param("gather", {"strip_dtype": "int8"}, "do not apply",
                  id="gather"),
-    pytest.param("auto", {}, "not ported", id="auto"),
+    pytest.param("auto", {}, "Dispatcher", id="auto"),
     pytest.param("bogus", {}, "unknown strategy", id="bogus"),
-    pytest.param("auto", {"strip_dtype": "int8"}, "not ported",
+    pytest.param("auto", {"strip_dtype": "int8"}, "Dispatcher",
                  id="auto-with-opts"),
 ])
 def test_unported_strategy_raises(strategy, opts, match):
@@ -189,28 +190,26 @@ def test_unported_strategy_raises(strategy, opts, match):
                               strategy=strategy, **opts)
 
 
-# The wire (strip_dtype) is ported: those cases now run on the CPU and
-# equal the plain version on that wire; the TPU tiling keys still raise.
-@pytest.mark.parametrize("opt,raises", [
-    pytest.param({"ty": 8}, True, id="opt0"),
-    pytest.param({"chunk": 64}, True, id="opt1"),
-    pytest.param({"band": 16}, True, id="opt2"),
-    pytest.param({"width": 512}, True, id="opt3"),
-    pytest.param({"double_buffer": True}, True, id="opt4"),
-    pytest.param({"micro": True}, True, id="opt5"),
-    pytest.param({"shared_window": True}, True, id="opt6"),
-    pytest.param({"strip_dtype": "int8"}, False, id="opt7"),
-    pytest.param({"strip_dtype": "bfloat16"}, False, id="opt8"),
+# The wire (strip_dtype) and the tiling keywords (their Hopper meaning:
+# the tile and strip, K3/K4/K5's flags) are ported: every case now runs
+# on the CPU.  The windows of this geometry cover every tap, so
+# each equals row 1's plain version on its wire bitwise.
+@pytest.mark.parametrize("opt", [
+    pytest.param({"ty": 8}, id="opt0"),
+    pytest.param({"chunk": 64}, id="opt1"),
+    pytest.param({"band": 16}, id="opt2"),
+    pytest.param({"width": 512}, id="opt3"),
+    pytest.param({"double_buffer": True}, id="opt4"),
+    pytest.param({"micro": True}, id="opt5"),
+    pytest.param({"shared_window": True}, id="opt6"),
+    pytest.param({"strip_dtype": "int8"}, id="opt7"),
+    pytest.param({"strip_dtype": "bfloat16"}, id="opt8"),
 ])
-def test_tpu_tiling_options_raise(opt, raises):
+def test_tpu_tiling_options_raise(opt):
     vol = torch.tensor(_volume(7))
-    if raises:
-        with pytest.raises(ValueError, match="not"):
-            backproject_batch(vol, torch.tensor(FILT), MATS, G, **opt)
-        return
     want = backproject_batch_ref(vol.clone(), torch.tensor(FILT),
                                  torch.tensor(MATS), tbp.GeomStatic.of(G),
-                                 wire=opt["strip_dtype"])
+                                 wire=opt.get("strip_dtype", "float32"))
     out = backproject_batch(vol, torch.tensor(FILT), MATS, G, pbatch=6,
                             **opt)
     assert torch.equal(out, want)

@@ -104,3 +104,123 @@ def test_engine_int8_wire_launches_once_per_fold(dev):
     want = vols["cpu"]
     torch.testing.assert_close(vols[str(dev)], want, rtol=0,
                                atol=1e-4 * float(want.abs().max()))
+
+
+def _strip_case(dev, wire):
+    _, imgs = _filtered(dev)
+    mats = torch.tensor(projection_matrices(G), dtype=torch.float32,
+                        device=dev)
+    vol = torch.tensor(np.random.default_rng(9).standard_normal(
+        (16, 16, 16)).astype(np.float32), device=dev)
+    return imgs, mats, vol
+
+
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("flags,key", [
+    (dict(double_buffer=True, db_depth=2), "strip_db"),
+    (dict(double_buffer=True, db_depth=4), "strip_db"),
+    (dict(micro=True, micro_group=4, micro_band=8, micro_width=32),
+     "strip_micro"),
+    (dict(shared_window=True), "strip_shared"),
+])
+def test_strip_kernels_equal_plain(dev, wire, flags, key):
+    """K3/K4/K5 against their plain versions on the CPU, bitwise (the
+    same arithmetic, the same window rules), and each launched once per
+    batch of the wrapper."""
+    from repro_torch.kernels import backproject_ops as ops
+
+    imgs, mats, vol = _strip_case(dev, wire)
+    kw = dict(ty=8, chunk=16, band=16, width=128, pbatch=3,
+              strip_dtype=wire, **flags)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    got = ops.backproject_batch(vol.clone(), imgs, mats, G, **kw)
+    torch.cuda.synchronize()
+    suffix = {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}[wire]
+    assert LAUNCHES[key + suffix] == 3            # 8 views: 3 + 3 + 2
+    want = ops.backproject_batch(vol.cpu(), imgs.cpu(), mats.cpu(), G,
+                                 **kw)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_strip_kernels_at_one_projection(dev):
+    """Rows 7 and 8: K3 and K4 launched with P = 1 count apart."""
+    from repro_torch.kernels import backproject_ops as ops
+
+    imgs, mats, vol = _strip_case(dev, "float32")
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    for flags in (dict(double_buffer=True), dict(micro=True)):
+        got = ops.backproject_one(vol.clone(), imgs[2], mats[2], G, ty=8,
+                                  chunk=16, band=16, width=128, **flags)
+        want = ops.backproject_one(vol.cpu(), imgs[2].cpu(), mats[2].cpu(),
+                                   G, ty=8, chunk=16, band=16, width=128,
+                                   **flags)
+        assert torch.equal(got.cpu(), want)
+    assert LAUNCHES["strip_db_p1"] == LAUNCHES["strip_micro_p1"] == 1
+
+
+def test_planner_on_the_card_equals_the_host(dev):
+    from repro_torch.core import clipping
+
+    mats = projection_matrices(Geometry().scaled(64, n_proj=12))
+    g = Geometry().scaled(64, n_proj=12)
+    for chunk, ty in ((8, 1), (16, 8)):
+        clipping._NEEDS.clear()
+        card = clipping.strip_needs(g, mats, chunk=chunk, ty=ty, device=dev)
+        clipping._NEEDS.clear()
+        host = clipping.strip_needs(g, mats, chunk=chunk, ty=ty,
+                                    device="cpu")
+        np.testing.assert_array_equal(card, host)
+    clipping._SHARED.clear()
+    card = clipping.shared_window_requirement(g, mats, ty=8, chunk=16,
+                                              pbatch=4, device=dev)
+    clipping._SHARED.clear()
+    assert card == clipping.shared_window_requirement(
+        g, mats, ty=8, chunk=16, pbatch=4, device="cpu")
+
+
+def test_engine_folds_through_the_tuned_kernel(dev, tmp_path, monkeypatch):
+    """strategy="auto" on the card with a stored decision whose K3 beat
+    the strategies: the engine resolves it, folds every batch through
+    strip_db and serves the plain engine's volume to 1e-4·max|v|."""
+    from repro_torch.dispatch import reset_dispatcher
+    from repro_torch.tune import (TunedConfig, clear_memory_cache,
+                                  device_identity, store_tuned)
+    from repro_torch.core.backproject import GeomStatic as GS
+
+    monkeypatch.setenv("REPRO_TORCH_TUNE_DIR", str(tmp_path))
+    monkeypatch.setenv("REPRO_TORCH_DISPATCH_INSITU", "0")
+    clear_memory_cache()
+    reset_dispatcher()
+    backend, kind = device_identity()
+    assert backend == "cuda" and kind == torch.cuda.get_device_name()
+    store_tuned(GS.of(G), TunedConfig(
+        strategy="strip2", opts={}, backend=backend, device_kind=kind,
+        us_per_call=100.0, pallas={"ty": 8, "chunk": 16, "band": 16,
+                                   "width": 128, "double_buffer": True,
+                                   "db_depth": 3, "pbatch": 3},
+        pallas_us=10.0))
+    raw, _ = _filtered(dev)
+    mats = projection_matrices(G)
+    vols = {}
+    try:
+        for device in ("cpu", dev):
+            eng = ReconstructionEngine(G, n_slots=1, strategy="auto",
+                                       device=device)
+            for k in LAUNCHES:
+                LAUNCHES[k] = 0
+            sid = eng.begin_scan()
+            eng.submit(sid, ProjectionChunk(raw.to(device), mats,
+                                            np.arange(G.n_proj)))
+            eng.drain()
+            vols[str(device)] = eng.result(sid).cpu()
+            assert eng.exec_plan.use_pallas and eng.pbatch == 3
+            assert eng.stats["pallas_folds"] == G.n_proj
+    finally:
+        clear_memory_cache()
+        reset_dispatcher()
+    assert LAUNCHES["strip_db"] == 3 and LAUNCHES["backproject"] == 0
+    want = vols["cpu"]
+    torch.testing.assert_close(vols[str(dev)], want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))

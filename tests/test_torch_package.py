@@ -28,6 +28,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.kernels, repro_torch.kernels._build, "
             "repro_torch.kernels.quant, repro_torch.quant, "
             "repro_torch.dispatch, repro_torch.tune, "
+            "repro_torch.tune.sweep, repro_torch.tune.audit, "
             "repro_torch.core.clipping, "
             "repro_torch.core.phantom, repro_torch.core.quality\n"
             "print('\\n'.join(sorted(sys.modules)))")
@@ -61,6 +62,7 @@ def test_default_device_is_the_card():
     from repro_torch.core.filtering import filter_projections
     from repro_torch.core.phantom import make_dataset
     from repro_torch.streaming import ReconstructionEngine
+    from repro_torch.tune import autotune, sweep_strategies
 
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
@@ -69,7 +71,9 @@ def test_default_device_is_the_card():
     for call in (lambda: filter_projections(x, G),
                  lambda: reconstruct(x, mats, G),
                  lambda: make_dataset(G),
-                 lambda: ReconstructionEngine(G)):
+                 lambda: ReconstructionEngine(G),
+                 lambda: sweep_strategies(G),
+                 lambda: autotune(G)):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
 
@@ -117,3 +121,24 @@ def test_build_finds_no_compiler_without_one(monkeypatch, tmp_path):
         _build.find_nvcc()
     assert _build.build_dir().parts[-2:] == ("build", "repro_torch")
     assert "--use_fast_math" not in _build.NVCC_FLAGS
+
+
+def test_strip_launcher_refuses_what_the_kernels_do_not_take():
+    from repro_torch.kernels.backproject import launch_strip, pitch_stack
+
+    vol = torch.zeros(4, G.L, G.L)
+    stack = torch.zeros(1, G.n_v + 2, G.n_u + 2)
+    kw = dict(kind="db", z0=0, O=G.O, MM=G.MM, n_u=G.n_u, n_v=G.n_v, ty=8,
+              chunk=16, band=16, width=128, pad_rows=32, pad_cols=128)
+    with pytest.raises(ValueError, match="CUDA"):
+        launch_strip(vol, stack, torch.zeros(1, 3, 4), **kw)
+    with pytest.raises(ValueError, match="unknown strip kernel"):
+        launch_strip(vol, stack, torch.zeros(1, 3, 4), **dict(kw,
+                                                              kind="ring"))
+    # A row of 1-byte codes is padded with zeros to whole 4-byte words.
+    codes = torch.ones(2, 3, 5, dtype=torch.int8)
+    pitched = pitch_stack(codes)
+    assert pitched.shape == (2, 3, 8) and torch.equal(pitched[..., :5],
+                                                      codes)
+    assert not pitched[..., 5:].any()
+    assert pitch_stack(stack) is stack

@@ -186,8 +186,10 @@ def test_windows_checked_only_where_they_are_read(strategy, opts):
     ("strip2", {"chunk": 8}, "do not apply"),
     ("onehot", {"strip_dtype": "int8"}, "do not apply"),
     ("strip", {"strip_dtype": "fp8"}, "strip_dtype"),
-    ("auto", {}, "not ported"),
-    ("auto", {"group": 8}, "not ported"),
+    # "auto" is the dispatcher's to resolve (the ids stay).
+    pytest.param("auto", {}, "Dispatcher", id="auto-opts6-not ported"),
+    pytest.param("auto", {"group": 8}, "Dispatcher",
+                 id="auto-opts7-not ported"),
     ("nearest", {}, "unknown strategy"),
 ])
 def test_explicit_plan_raises(strategy, opts, match):
@@ -222,8 +224,7 @@ def test_plan_matches_reference_and_round_trips(strategy, opts, pbatch):
     plan = ExecutionPlan.explicit(strategy, dict(opts), pbatch)
     ref_fields = ref.as_dict()
     assert ref_fields["pallas"] is None and not ref_fields["use_pallas"]
-    assert plan.as_dict() == {k: ref_fields[k]
-                              for k in ("strategy", "opts", "pbatch")}
+    assert plan.as_dict() == ref_fields
     assert plan.label == ref.label
     assert convert.plan_from_reference(ref.as_dict()) == plan
     assert hash(plan) == hash(ExecutionPlan.explicit(strategy, dict(opts),
@@ -231,9 +232,15 @@ def test_plan_matches_reference_and_round_trips(strategy, opts, pbatch):
 
 
 def test_tuned_reference_plan_is_not_carried():
+    """A tuned reference plan is carried with its kernel config, field
+    for field; one whose kernel config names a key the
+    port's kernels do not take is not carried, and raises."""
     fields = JPlan.explicit("strip2").as_dict()
-    fields.update(pallas={"ty": 8}, use_pallas=True)
-    with pytest.raises(ValueError, match="not ported"):
+    fields.update(pallas={"ty": 8, "double_buffer": True}, use_pallas=True)
+    plan = convert.plan_from_reference(fields)
+    assert plan.as_dict() == fields and plan.use_pallas
+    fields.update(pallas={"ty": 8, "lanes": 128})
+    with pytest.raises(ValueError, match="lanes"):
         convert.plan_from_reference(fields)
 
 

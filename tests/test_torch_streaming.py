@@ -121,7 +121,7 @@ def test_streamed_matches_one_shot_and_result_pops():
     eng.release(sid)                  # idempotent after eviction
 
 
-def test_engine_rejects_bad_submissions():
+def test_engine_rejects_bad_submissions(tmp_path, monkeypatch):
     eng = ReconstructionEngine(G, n_slots=1, pbatch=4, device="cpu")
     with pytest.raises(ValueError, match="n_proj"):
         eng.begin_scan(n_proj=0)
@@ -142,8 +142,59 @@ def test_engine_rejects_bad_submissions():
     assert eng.scans[sid].done
     with pytest.raises(ValueError, match="finished"):
         eng.submit(sid, ProjectionChunk(PROJS[2], MATS[2], 2))
-    with pytest.raises(ValueError, match="not ported"):
-        ReconstructionEngine(G, strategy="auto", device="cpu")
+    # "auto" resolves through the dispatcher: with in-situ
+    # selection off and no cached decision, to the strip2 fallback.
+    from repro_torch.dispatch import ExecutionPlan, reset_dispatcher
+
+    monkeypatch.setenv("REPRO_TORCH_DISPATCH_INSITU", "0")
+    monkeypatch.setenv("REPRO_TORCH_TUNE_DIR", str(tmp_path / "tune"))
+    reset_dispatcher()
+    try:
+        auto = ReconstructionEngine(G, strategy="auto", device="cpu")
+    finally:
+        reset_dispatcher()
+    assert auto.exec_plan == ExecutionPlan.explicit("strip2")
     with pytest.raises(ValueError, match="strip_dtype"):
         ReconstructionEngine(G, strategy="strip2", strip_dtype="int4",
                              device="cpu")
+
+
+@pytest.mark.parametrize("pallas", [
+    pytest.param({"ty": 8, "chunk": 16, "band": 16, "width": 128,
+                  "double_buffer": True, "db_depth": 2, "pbatch": 3},
+                 id="db"),
+    pytest.param({"ty": 4, "chunk": 16, "band": 16, "width": 128,
+                  "micro": True, "micro_group": 8, "micro_band": 8,
+                  "micro_width": 32, "pbatch": 2}, id="micro"),
+    pytest.param({"ty": 8, "chunk": 16, "band": 16, "width": 128,
+                  "shared_window": True, "pbatch": 4}, id="shared"),
+])
+def test_tuned_kernel_plan_folds_like_reference_engine(pallas):
+    """An engine on a plan whose tuned kernel config beat the strategies
+    (``use_pallas``) folds every batch through that kernel (the plain
+    version on the CPU) at the decision's depth, and serves what the
+    reference engine serves on the same tuned plan through its Pallas
+    variant (interpret mode), to 1e-5.  (Float32 wire: each engine
+    filters with its own FFT, and a narrow wire's rounding would turn
+    their last-bit differences into whole bf16 steps.)"""
+    from repro.dispatch import ExecutionPlan as JPlan
+    from repro_torch import convert
+
+    ref_plan = JPlan.explicit("strip2")._replace(
+        pallas=tuple(sorted(pallas.items())), use_pallas=True)
+    jeng = jstream.ReconstructionEngine(JG, n_slots=1, plan=ref_plan)
+    teng = ReconstructionEngine(
+        G, n_slots=1, plan=convert.plan_from_reference(ref_plan.as_dict()),
+        device="cpu")
+    assert teng.exec_plan.use_pallas and teng.pbatch == pallas["pbatch"]
+    jsid, tsid = jeng.begin_scan(), teng.begin_scan()
+    for projs, mats, idx in _chunks(13, (4, 2)):
+        jeng.submit(jsid, jstream.ProjectionChunk(projs, mats, idx))
+        teng.submit(tsid, ProjectionChunk(torch.tensor(projs), mats, idx))
+    jeng.drain()
+    teng.drain()
+    want = np.asarray(jeng.result(jsid))
+    got = teng.result(tsid).numpy()
+    assert teng.stats["pallas_folds"] == jeng.stats["pallas_folds"] \
+        == G.n_proj
+    np.testing.assert_allclose(got, want, **TOL)
