@@ -14,7 +14,13 @@ one-shot reconstruction on the bfloat16 wire, checks the strip planner
 on the card against a numpy copy and times it over all 496 matrices,
 serves two scans with ``strategy="auto"`` (in-situ selection from an
 empty tune directory, then a cache hit), folds a full scan through each
-strip kernel as a tuned plan names it, and checks every volume.  Any
+strip kernel as a tuned plan names it, and checks every volume.  Then
+the language-model path: the row gather (``csrc/gather.cu``) and the
+sLSTM recurrence (``csrc/slstm.cu``) against their plain versions at
+xlstm-125m's widths, and xlstm-125m served at full width (bfloat16,
+seeded weights) through ``ServingEngine`` with ``gather_impl="take"``
+and ``"onehot"`` (the greedy tokens must agree), its prefill logits held
+to the same model on the plain versions, and one 8 x 2048 forward.  Any
 failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the JSON record of
 every kernel of the path.  Needs one CUDA card; imports nothing of JAX
@@ -25,6 +31,9 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextlib
+import dataclasses
+import itertools
 import json
 import os
 import pathlib
@@ -44,6 +53,7 @@ _SRC = pathlib.Path(__file__).resolve().parent / "src"
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
+L2_BYTES = 50 * 2**20
 
 # Per-voxel float operations of the kernel: 6 for the voxel's world
 # coordinates, 37 per projection (three 3x4 rows, the reciprocal, the
@@ -87,6 +97,25 @@ STRIP_VARIANTS = (
                                   micro_width=32)),
     ("strip_shared", "shared", dict(shared_window=True)),
 )
+
+
+# The language-model phases (9-11): xlstm-125m at its published widths.
+LM_ARCH = "xlstm-125m"
+GATHER_NS = (4, 512, 8192)          # a decode tick, a prompt, a long batch
+SLSTM_SHAPES = ((1, 1), (4, 1), (1, 512), (8, 2048))   # (B, S)
+SLSTM_TOL = 2e-4         # rtol = atol: the reference's kernel test's
+# Operations of one sLSTM step per feature, a transcendental counted as
+# one: 4 r·h products and 4 adds, tanh, sigmoid (3), softplus (6), the
+# stabiliser (4), two exponentials, c (3), n (2), h (3).
+SLSTM_FLOPS_PER_STEP = 32
+LM_SLOTS, LM_MAX_LEN = 4, 1024
+LM_REQUESTS, LM_MAX_TOKENS = 8, 32
+LM_PROMPT = (64, 512)               # prompt lengths, inclusive
+LM_FORWARD = (8, 2048)
+# bfloat16 model, kernels against plain versions on the card: the
+# reference's bf16 bound for prefill against decode (2e-2), x max(1,
+# max|logits|).
+LM_LOGIT_TOL = 2e-2
 
 
 def fail(msg: str) -> None:
@@ -174,7 +203,8 @@ def build_all() -> float:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    sources = ("backproject", "quant", "backproject_strip")
+    sources = ("backproject", "quant", "backproject_strip", "gather",
+               "slstm")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         for f in [pool.submit(_build.load, n) for n in sources]:
             f.result()
@@ -951,6 +981,387 @@ def serve_tuned(geom, dev, mats, filt, v32, tile, window):
     return out
 
 
+# ----------------------------------------------------------------------
+# The language-model path (phases 9-11)
+# ----------------------------------------------------------------------
+
+@contextlib.contextmanager
+def patched(module, name: str, fn):
+    """``module.name`` is ``fn`` while inside."""
+    orig = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def per_call_ms(fn, inner: int, reps: int = 5) -> float:
+    """ms per call of ``fn``: the median over ``reps`` CUDA-event timings
+    of ``inner`` calls back to back."""
+    def many():
+        for _ in range(inner):
+            fn()
+    return time_ms(many, reps) / inner
+
+
+def device_ms(fn, inner: int = 20, reps: int = 5) -> float:
+    """ms per call of ``fn`` on the device alone: the card first spins
+    (``torch.cuda._sleep``) while the host enqueues ``inner`` calls
+    between two CUDA events, so the events time the kernels back to back
+    and not the host's launch rate.  The spin is doubled until the host
+    finished enqueueing before the card reached the first event.
+    Median of ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    spin, times = 4_000_000, []
+    while len(times) < reps:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        if a.query():               # the card waited for the host
+            b.synchronize()
+            spin *= 2
+            if spin > 2**31:
+                fail("the host could not enqueue ahead of the card")
+            continue
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times)
+
+
+def bytes_bound(nbytes: float, flops: float = 0.0):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_gather(cfg, dev):
+    """Phase 9: the row gather (kernel row 9) against its plain version at
+    V = vocab, D = d_model, in bf16 and f32, at N = 4, 512, 8192 with ids
+    -1 and V mixed in: max |d| = 0, and equal to F.embedding on the
+    in-range ids.  Times per launch, the plain version's, F.embedding's
+    (on the clamped ids), on cold rows, and the bound (each row read and written once,
+    plus the ids)."""
+    from repro_torch.kernels.gather import launch_onehot_gather
+    from repro_torch.kernels.gather_kernel_ops import cuda_onehot_gather
+    from repro_torch.kernels.gather_ref import gather_ref
+
+    V, D = cfg.vocab, cfg.d_model
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        table = torch.randn((V, D), generator=g, device=dev).to(dtype)
+        name = str(dtype).split(".")[-1]
+        for N in GATHER_NS:
+            ids = torch.randint(0, V, (N,), generator=g, device=dev)
+            ids[0], ids[1] = -1, V
+            out = cuda_onehot_gather(table, ids)
+            torch.cuda.synchronize()
+            ref = gather_ref(table, ids)
+            ok = (ids >= 0) & (ids < V)
+            err = float((out.float() - ref.float()).abs().max())
+            lib_same = torch.equal(out[ok], F.embedding(ids[ok], table))
+            if not torch.equal(out, ref) or not lib_same:
+                fail(f"row gather {name} N={N}: differs from its plain "
+                     f"version or from F.embedding")
+            # Timed launches cycle through id sets whose rows add up to
+            # twice the L2 cache, so rows are read from device memory as
+            # a prompt's first lookup reads them (not from the last
+            # launch's L2 lines).
+            n_sets = min(16, -(-2 * L2_BYTES // (N * D
+                                                 * table.element_size())))
+            sets = [ids] + [torch.randint(0, V, (N,), generator=g,
+                                          device=dev)
+                            for _ in range(n_sets - 1)]
+            ring = itertools.cycle(sets)
+            ms = device_ms(lambda: launch_onehot_gather(table, next(ring)))
+            paced = per_call_ms(
+                lambda: launch_onehot_gather(table, next(ring)), 20)
+            plain = per_call_ms(lambda: gather_ref(table, next(ring)), 20)
+            clamped = itertools.cycle([i.clamp(0, V - 1) for i in sets])
+            lib = device_ms(lambda: F.embedding(next(clamped), table))
+            bms, by = bytes_bound(2 * N * D * table.element_size() + N * 8)
+            print(f"  {name} N={N}: max|d| {err} vs plain, = F.embedding "
+                  f"on in-range ids; {ms:.5f} ms per launch on the device "
+                  f"(bound {bms:.5f}, {by}), {paced:.5f} ms back to back "
+                  f"as the host launches; plain {plain:.5f} ms; "
+                  f"F.embedding {lib:.5f} ms on the device")
+            res[(name, N)] = {"err": err, "ms": ms, "paced_ms": paced,
+                              "plain_ms": plain, "library_ms": lib,
+                              "bound_ms": bms, "bound_by": by}
+        del table
+    return res
+
+
+def slstm_bound(B: int, S: int, di: int):
+    """zifo read (16 B), h written (4 B) per token and feature, the two
+    states and r once; the operations over the FP32 peak."""
+    nbytes = B * S * di * 20 + 2 * 4 * B * di * 4 + 4 * di * 4
+    return bytes_bound(nbytes, B * S * di * SLSTM_FLOPS_PER_STEP)
+
+
+def check_slstm(cfg, dev):
+    """Phase 10: the sLSTM recurrence (kernel row 10) against its plain
+    version at di = d_inner for each (B, S), from a fresh and from a
+    carried state: hidden states and final state within rtol = atol =
+    SLSTM_TOL.  Times per launch, the plain version's, and the bound."""
+    from repro_torch.kernels.slstm import launch_slstm
+    from repro_torch.kernels.slstm_ops import slstm_recurrence
+    from repro_torch.kernels.slstm_ref import (init_slstm_state,
+                                               slstm_recurrence_ref)
+
+    di = cfg.d_inner
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    r = torch.randn((4, di), generator=g, device=dev) / di ** 0.5
+    res = {}
+    for B, S in SLSTM_SHAPES:
+        zifo = torch.randn((B, S, 4, di), generator=g, device=dev)
+        errs = []
+        for fresh in (True, False):
+            if fresh:
+                state = init_slstm_state(B, di, device=dev)
+            else:
+                state = torch.randn((4, B, di), generator=g, device=dev)
+                state[1] = state[1].abs() + 1.0
+            hs, final = slstm_recurrence(zifo, r, state)
+            torch.cuda.synchronize()
+            want_hs, want = slstm_recurrence_ref(zifo, r, state)
+            for got, ref in ((hs, want_hs), (final, want)):
+                excess = float(((got - ref).abs() - SLSTM_TOL
+                                * (1 + ref.abs())).max())
+                if not excess <= 0:
+                    fail(f"sLSTM B={B} S={S} {'fresh' if fresh else 'carried'}"
+                         f": outside rtol = atol = {SLSTM_TOL} of the plain "
+                         f"version")
+            errs += [float((hs - want_hs).abs().max()),
+                     float(((final - want).abs()
+                            / (1 + want.abs())).max())]
+        state = init_slstm_state(B, di, device=dev)
+        inner = 20 if S == 1 else 3
+        ms = device_ms(lambda: launch_slstm(zifo, r, state), inner)
+        paced = per_call_ms(lambda: launch_slstm(zifo, r, state), inner)
+        plain = time_ms(lambda: slstm_recurrence_ref(zifo, r, state),
+                        reps=1 if S > 1 else 5)
+        bms, by = slstm_bound(B, S, di)
+        print(f"  B={B} S={S}: max|d| h {max(errs[0::2]):.3e}, final "
+              f"state {max(errs[1::2]):.3e} (relative); {ms:.5f} ms per "
+              f"launch on the device, {paced:.5f} ms back to back as the "
+              f"host launches (bound {bms:.5f}, {by}; but the recurrence "
+              f"is an S={S}-long chain of dependent steps: "
+              f"{1e6 * ms / S:.1f} ns a step); plain {plain:.3f} ms")
+        res[(B, S)] = {"err_h": max(errs[0::2]),
+                       "err_state_rel": max(errs[1::2]), "ms": ms,
+                       "paced_ms": paced, "plain_ms": plain,
+                       "bound_ms": bms, "bound_by": by}
+        del zifo
+    return res
+
+
+def serve_lm(cfg, dev):
+    """Phase 11: the model served at full width (the config's widths,
+    bfloat16, seeded weights on the card): LM_REQUESTS prompts of
+    LM_PROMPT tokens, LM_MAX_TOKENS each, greedy and temperature=0.8 in
+    turn, through ServingEngine(n_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    with gather_impl="take" and "onehot"; counts zeroed before each run
+    and read after; the greedy tokens of both runs equal.  Then one
+    prompt's prefill logits and cache with the kernels against the plain
+    versions on the card, and a forward of LM_FORWARD tokens."""
+    import repro_torch.kernels.gather_kernel_ops as gops
+    import repro_torch.kernels.slstm_ops as sops
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.gather_ref import gather_ref
+    from repro_torch.kernels.slstm_ref import slstm_recurrence_ref
+    from repro_torch.models import forward, init_model, prefill
+    from repro_torch.serving import Request, ServingEngine
+
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {cfg.name}: {n_params / 1e6:.2f} M parameters "
+          f"({cfg.param_dtype}), drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; {cfg.n_layers} layers "
+          f"{cfg.block_pattern}, d_model {cfg.d_model}, d_inner "
+          f"{cfg.d_inner}, vocab {cfg.vocab}")
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lengths]
+    n_slstm = sum(k == "slstm" for k in cfg.block_pattern) * cfg.n_periods
+    # Warm-up, untimed: each prompt length's first prefill and the first
+    # decode calls pay one-time library costs (kernel loads, matmul
+    # heuristics) that would land on whichever run came first.
+    for impl in ("take", "onehot"):
+        eng = ServingEngine(dataclasses.replace(cfg, gather_impl=impl),
+                            model, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                            seed=SEED, device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_tokens=2))
+        eng.run_until_done()
+    torch.cuda.synchronize()
+    runs = {}
+    for impl in ("take", "onehot"):
+        cfg_i = dataclasses.replace(cfg, gather_impl=impl)
+        eng = ServingEngine(cfg_i, model, n_slots=LM_SLOTS,
+                            max_len=LM_MAX_LEN, seed=SEED, device=dev)
+        reqs = [Request(rid=i, prompt=p, max_tokens=LM_MAX_TOKENS,
+                        temperature=0.8 if i % 2 else 0.0)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        timers = {n: LaunchTimer(m, f) for n, (m, f) in {
+            "slstm": (sops, "launch_slstm"),
+            "onehot_gather": (gops, "launch_onehot_gather"),
+            "prefill": (engine_mod, "prefill"),
+            "decode": (engine_mod, "_masked_decode_step")}.items()}
+        with contextlib.ExitStack() as stack:
+            for t in timers.values():
+                stack.enter_context(t)
+            torch.cuda.synchronize()
+            for key in LAUNCHES:
+                LAUNCHES[key] = 0
+            t0 = time.perf_counter()
+            ticks = eng.run_until_done()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+        ms = {n: t.ms() for n, t in timers.items()}
+        n_out = sum(len(r.out_tokens) for r in reqs)
+        n_pre, n_dec = len(ms["prefill"]), len(ms["decode"])
+        print(f"  served {impl}: {LM_REQUESTS} requests in {wall:.3f} s, "
+              f"{ticks} ticks, {n_dec} decode calls, {n_out} tokens = "
+              f"{n_out / wall:.1f} tokens/s; launches "
+              f"{dict((k, v) for k, v in launches.items() if v)}")
+        if not all(r.done and len(r.out_tokens) == LM_MAX_TOKENS
+                   and all(0 <= t < cfg.vocab for t in r.out_tokens)
+                   for r in reqs):
+            fail(f"served {impl}: a request did not finish with "
+                 f"{LM_MAX_TOKENS} legal tokens")
+        want_onehot = (n_pre + n_dec) if impl == "onehot" else 0
+        if launches["slstm"] != n_slstm * (n_pre + n_dec) \
+                or launches["onehot_gather"] != want_onehot \
+                or sum(launches.values()) != launches["slstm"] \
+                + launches["onehot_gather"]:
+            fail(f"served {impl}: launches {launches} for {n_pre} prefills "
+                 f"and {n_dec} decode calls")
+        pre_ms = sum(ms["prefill"]) / int(lengths.sum())
+        tick_ms = sum(ms["decode"]) / ticks
+        print(f"    prefill {pre_ms:.4f} ms per prompt token "
+              f"({int(lengths.sum())} tokens, {n_pre} prompts); decode "
+              f"{statistics.median(ms['decode']):.3f} ms per call (median, "
+              f"{LM_SLOTS} slots), {tick_ms:.3f} ms per tick")
+        for name in ("slstm", "onehot_gather"):
+            if ms[name]:
+                print(f"    {name}: {len(ms[name])} launches, median "
+                      f"{statistics.median(ms[name]):.5f} ms, total "
+                      f"{sum(ms[name]):.2f} ms")
+        runs[impl] = {"wall_s": wall, "ticks": ticks, "decode_calls": n_dec,
+                      "tokens": n_out, "tokens_per_s": n_out / wall,
+                      "prefill_ms_per_token": pre_ms,
+                      "decode_ms_per_call": statistics.median(ms["decode"]),
+                      "decode_ms_per_tick": tick_ms,
+                      "launches": {k_: v for k_, v in launches.items() if v},
+                      "kernel_ms_median": {
+                          n: statistics.median(ms[n]) for n in
+                          ("slstm", "onehot_gather") if ms[n]},
+                      "out": [r.out_tokens for r in reqs]}
+        del eng
+    greedy = [runs[i]["out"][0::2] for i in ("take", "onehot")]
+    if greedy[0] != greedy[1]:
+        fail("take and onehot served different greedy tokens")
+    print(f"  take and onehot served the same greedy tokens "
+          f"({len(greedy[0])} requests)")
+
+    # One prompt's prefill, kernels against plain versions on the card.
+    cfg_o = dataclasses.replace(cfg, gather_impl="onehot")
+    toks = torch.as_tensor(prompts[0], device=dev)[None]
+    lk, ck = prefill(model, cfg_o, {"tokens": toks}, LM_MAX_LEN)
+    with patched(sops, "launch_slstm", slstm_recurrence_ref), \
+            patched(gops, "launch_onehot_gather", gather_ref):
+        lp, cp = prefill(model, cfg_o, {"tokens": toks}, LM_MAX_LEN)
+    torch.cuda.synchronize()
+    logit_err = float((lk - lp).abs().max())
+    bound = LM_LOGIT_TOL * max(1.0, float(lp.abs().max()))
+    leaves = [(a, b) for n in ck["blocks"] for a, b in
+              zip(ck["blocks"][n].values(), cp["blocks"][n].values())]
+    cache_err = max(float(((a - b).abs() / (1 + b.abs())).max())
+                    for a, b in leaves)
+    print(f"  prefill of {toks.shape[1]} tokens, kernels vs plain versions: "
+          f"logits max|d| {logit_err:.3e} (bound {bound:.3e}), cache "
+          f"max |d|/(1+|ref|) {cache_err:.3e}")
+    if not logit_err <= bound or not cache_err <= SLSTM_TOL:
+        fail("the model's prefill on the kernels disagrees with its plain "
+             "versions")
+
+    B, S = LM_FORWARD
+    toks = torch.randint(0, cfg.vocab, (B, S), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(SEED))
+    torch.cuda.synchronize()
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    logits, _ = forward(model, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    if logits.shape != (B, S, cfg.vocab) or launches["slstm"] != n_slstm \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"forward of {B}x{S}: {tuple(logits.shape)}, launches "
+             f"{launches}, or non-finite logits")
+    print(f"  forward {B}x{S}: {fwd_s:.3f} s, {B * S / fwd_s:.1f} tokens/s; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del logits, model
+    torch.cuda.empty_cache()
+    return {"runs": runs, "prefill_logit_err": logit_err,
+            "prefill_logit_bound": bound, "prefill_cache_err": cache_err,
+            "forward_s": fwd_s, "n_params": n_params}
+
+
+def run_lm(cfg, dev, card: str) -> list:
+    """Phases 9-11 on ``cfg``; prints the details and returns the
+    ``kernels`` entries of rows 9 and 10."""
+    print(f"phase 9: the row gather vs plain at V={cfg.vocab}, "
+          f"D={cfg.d_model}")
+    gat = check_gather(cfg, dev)
+    print(f"phase 10: the sLSTM recurrence vs plain at di={cfg.d_inner}")
+    rec = check_slstm(cfg, dev)
+    print(f"phase 11: {cfg.name} served at full width")
+    lm = serve_lm(cfg, dev)
+    src = "src/repro_torch/kernels/csrc/"
+    g4 = gat[("bfloat16", GATHER_NS[0])]
+    s4 = rec[(LM_SLOTS, 1)]
+    k = [{"name": "onehot_gather", "route": "cuda",
+          "source": src + "gather.cu",
+          "replaces": "src/repro/kernels/gather.py:36",
+          "launches": lm["runs"]["onehot"]["launches"].get(
+              "onehot_gather", 0),
+          "max_abs_err": max(v["err"] for v in gat.values()),
+          "ms": g4["ms"], "plain_ms": g4["plain_ms"],
+          "bound_ms": g4["bound_ms"], "bound_by": g4["bound_by"],
+          "library_ms": g4["library_ms"]},
+         {"name": "slstm", "route": "cuda", "source": src + "slstm.cu",
+          "replaces": "src/repro/kernels/slstm.py:34",
+          "launches": lm["runs"]["take"]["launches"].get("slstm", 0),
+          "max_abs_err": max(v["err_h"] for v in rec.values()),
+          "ms": s4["ms"], "plain_ms": s4["plain_ms"],
+          "bound_ms": s4["bound_ms"], "bound_by": s4["bound_by"],
+          "library_ms": None}]
+    print(json.dumps({"lm_detail": {
+        "card": card,
+        "gather": {f"{d}/N={n}": v for (d, n), v in gat.items()},
+        "slstm": {f"B={b}/S={s}": v for (b, s), v in rec.items()},
+        "served": {i: {k_: v for k_, v in r.items() if k_ != "out"}
+                   for i, r in lm["runs"].items()},
+        **{k_: v for k_, v in lm.items() if k_ != "runs"}}}))
+    return k
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -969,9 +1380,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     build_s = build_all()
-    print(f"phase 1: built the backproject, quant and backproject_strip "
-          f"kernels in {build_s:.2f} s")
-    record = run(Geometry(), torch.device("cuda", 0), card, build_s)
+    print(f"phase 1: built the backproject, quant, backproject_strip, "
+          f"gather and slstm kernels in {build_s:.2f} s")
+    dev = torch.device("cuda", 0)
+    record = run(Geometry(), dev, card, build_s)
+    from repro_torch.configs import ARCHS
+    record["kernels"] += run_lm(ARCHS[LM_ARCH], dev, card)
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
 """repro_torch: the cone-beam CT reconstruction stack in PyTorch, with
-hand-written CUDA kernels for an NVIDIA H100.
+hand-written CUDA kernels for an NVIDIA H100, and the language-model
+serving stack's xlstm-125m (:mod:`repro_torch.models`,
+:mod:`repro_torch.serving`).
 
 A port of the JAX package ``repro``, which stays the reference: this
 package never imports it (nor JAX).  The public surface is

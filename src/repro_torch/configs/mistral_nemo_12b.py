@@ -1,0 +1,20 @@
+"""mistral-nemo-12b — 128k ctx [hf:mistralai/Mistral-Nemo-Base-2407; hf].
+
+40L d_model=5120 32H (kv=8) d_ff=14336 vocab=131072; head_dim=128
+(explicit — not d_model/n_heads), rope theta 1M for long context.
+"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mistral-nemo-12b",
+    family="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=14336,
+    vocab=131072,
+    rope_theta=1e6,
+)

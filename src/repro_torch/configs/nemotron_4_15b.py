@@ -1,0 +1,20 @@
+"""nemotron-4-15b — GQA, squared-ReLU [arXiv:2402.16819; unverified].
+
+32L d_model=6144 48H (kv=8) d_ff=24576 vocab=256000.  Squared-ReLU MLP
+(two matrices, no gate), LayerNorm.
+"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="nemotron-4-15b",
+    family="dense",
+    n_layers=32,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    d_ff=24576,
+    vocab=256000,
+    mlp_act="relu2",
+    norm="layernorm",
+)

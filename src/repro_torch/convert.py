@@ -2,11 +2,13 @@
 
 CT has no weights: what both sides must share to compute the same thing
 is the geometry, the filter plan, the execution plan, the int8 wire's
-encodings and the slot volumes.  The reference's objects arrive here as
+encodings and the slot volumes.  The language model shares its
+parameters and its decode cache.  The reference's objects arrive here as
 plain Python and numpy values (this package never imports ``repro``): a
 geometry as ``dataclasses.asdict(geom)``, a filter plan as its fields,
 an execution plan as ``plan.as_dict()``, a ``RowQuant`` as its three
-numpy arrays, volumes and projection stacks as numpy arrays.
+numpy arrays, volumes and projection stacks as numpy arrays, a model's
+parameters and cache as nested dicts of numpy arrays.
 """
 
 from __future__ import annotations
@@ -18,11 +20,13 @@ from ._device import as_f32, resolve_device
 from .core.filtering import FilterPlan
 from .core.geometry import Geometry
 from .dispatch.plan import ExecutionPlan
+from .models.model import GenericLM
 from .quant import RowQuant
 
 __all__ = ["geometry_from_reference", "filter_plan_from_reference",
            "tensor_from_reference", "rowquant_from_reference",
-           "plan_from_reference"]
+           "plan_from_reference", "lm_params_from_reference",
+           "lm_cache_from_reference"]
 
 
 def geometry_from_reference(fields: dict) -> Geometry:
@@ -91,3 +95,69 @@ def plan_from_reference(fields: dict) -> ExecutionPlan:
                          f"port's kernels {_PALLAS_KEYS}")
     return plan._replace(pallas=tuple(sorted(pallas.items())),
                          use_pallas=bool(fields.get("use_pallas")))
+
+
+def _array(leaf) -> torch.Tensor:
+    """A reference leaf as a host tensor of its own dtype; bfloat16
+    (``ml_dtypes``, which numpy cannot hand to torch) widens to float32
+    exactly and narrows back."""
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(arr)
+
+
+def _load(module, tree: dict, period: int | None, where: str):
+    own = dict(module.named_parameters(recurse=False))
+    kids = dict(module.named_children())
+    if set(tree) != set(own) | set(kids):
+        raise ValueError(f"{where}: the reference has {sorted(tree)}, the "
+                         f"port {sorted(set(own) | set(kids))}")
+    for name, param in own.items():
+        t = _array(tree[name])
+        if period is not None:
+            t = t[period]
+        if tuple(t.shape) != tuple(param.shape):
+            raise ValueError(f"{where}/{name}: shape {tuple(t.shape)}, the "
+                             f"port's is {tuple(param.shape)}")
+        param.copy_(t.to(param.dtype))
+    for name, child in kids.items():
+        _load(child, tree[name], period, f"{where}/{name}")
+
+
+@torch.no_grad()
+def lm_params_from_reference(params: dict, cfg, *,
+                             device="cuda") -> GenericLM:
+    """The port's model on ``device`` holding the reference's parameters.
+
+    ``params`` is the reference's tree as numpy arrays: top-level leaves
+    (``embed``, ``norm_f_*``) and ``blocks/b{j}/...`` stacked on a
+    leading ``n_periods`` axis; layer ``i`` of the port takes period ``i
+    // period`` of slot ``b{i % period}``.  Values are carried bitwise; a
+    missing or extra leaf, or a shape that differs, raises."""
+    model = GenericLM(cfg, device=resolve_device(device), generator=None)
+    top = {k: v for k, v in params.items() if k != "blocks"}
+    own = {name for name, _ in model.named_parameters(recurse=False)}
+    if set(top) != own:
+        raise ValueError(f"the reference has top-level leaves {sorted(top)}, "
+                         f"the port {sorted(own)}")
+    for name, param in model.named_parameters(recurse=False):
+        param.copy_(_array(top[name]).to(param.dtype))
+    for i, block in enumerate(model.layers):
+        p, j = divmod(i, cfg.period)
+        _load(block, params["blocks"][f"b{j}"], p, f"blocks/b{j}[{p}]")
+    return model
+
+
+def lm_cache_from_reference(cache: dict, *, device="cuda") -> dict:
+    """The reference's decode cache (``{"blocks": {"b{j}": {leaf:
+    (n_periods, B, ...)}}}`` as numpy arrays) in the port's layout, which
+    is the same, as tensors on ``device``, bitwise."""
+    dev = resolve_device(device)
+
+    def convert(tree):
+        if isinstance(tree, dict):
+            return {k: convert(v) for k, v in tree.items()}
+        return _array(tree).to(dev)
+
+    return convert(cache)

@@ -1,0 +1,197 @@
+"""xLSTM blocks (mLSTM / sLSTM), counterpart of ``repro/models/ssm.py``.
+
+* **mLSTM** runs the chunkwise-parallel form: within a chunk the matrix
+  memory is applied as decayed attention; across chunks a recurrent
+  ``(hd x hd)`` state ``C`` and normaliser ``n`` are carried with
+  max-stabilised exponential gates (arXiv:2405.04517, eqs. 19-27).  Plain
+  PyTorch: the reference has no Pallas kernel for it.
+* **sLSTM** is sequential; its recurrence runs through kernel row 10
+  (:mod:`repro_torch.kernels.slstm_ops`): the CUDA kernel on the card,
+  the plain recurrence on the CPU, in prefill and in every decode step
+  (a launch at S = 1 from the cached state).
+
+Mamba comes with ROADMAP Queue 1, item 5.  The ``-inf`` stabiliser starts
+(``m``) give 0, never NaN: ``exp(-inf) = 0`` and every ``m_new`` is
+finite.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.slstm_ops import fused_slstm_forward
+from ..kernels.slstm_ref import init_slstm_state, softplus
+from .layers import Params, dense, init_dense
+
+__all__ = [
+    "init_mlstm", "mlstm_forward", "mlstm_step", "init_mlstm_cache",
+    "init_slstm", "slstm_forward", "slstm_step", "init_slstm_cache",
+]
+
+_SLSTM_KEYS = ("c", "n", "h", "m")
+
+
+# ======================================================================
+# mLSTM (matrix LSTM, chunkwise-parallel)
+# ======================================================================
+
+def init_mlstm(p: Params, cfg):
+    d, di = cfg.d_model, cfg.d_inner
+    init_dense(p, "qkv", d, 3 * di)
+    init_dense(p, "gates", d, 2 * cfg.n_heads)
+    init_dense(p, "up", d, di)
+    init_dense(p, "out_proj", di, d)
+
+
+def _mlstm_heads(cfg, t: torch.Tensor) -> torch.Tensor:
+    B, S, di = t.shape
+    H = cfg.n_heads
+    return t.reshape(B, S, H, di // H)
+
+
+def mlstm_forward(params, cfg, x: torch.Tensor, *, chunk: int = 128,
+                  dtype=torch.bfloat16, return_state: bool = False):
+    """Chunkwise-parallel mLSTM.  ``x``: (B, S, d) -> (B, S, d)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    di = cfg.d_inner
+    hd = di // H
+    qkv = dense(params, "qkv", x, dtype)
+    q, k, v = (_mlstm_heads(cfg, t).float() for t in qkv.chunk(3, dim=-1))
+    gates = dense(params, "gates", x, dtype).float()
+    ig, fg = gates.chunk(2, dim=-1)                        # (B, S, H)
+    logf = -softplus(-fg)                                  # log sigmoid
+
+    if S % chunk:
+        chunk = S
+    scale = 1.0 / math.sqrt(hd)
+    qi = torch.arange(chunk, device=x.device)
+    causal = (qi[:, None] >= qi[None, :])[None, :, :, None]
+
+    C = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+    nvec = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
+    m = torch.full((B, H), -torch.inf, dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        qb, kb, vb, ib, fb = q[:, sl], k[:, sl], v[:, sl], ig[:, sl], \
+            logf[:, sl]
+        csum = torch.cumsum(fb, dim=1)                     # (B, C, H)
+        total = csum[:, -1]
+        # One chunk-level stabiliser suffices: log-sigmoid forget gates
+        # are <= 0, so every exponent below is bounded by max(m, ig_k).
+        m_new = torch.maximum(m, ib.amax(dim=1))
+        # Intra-chunk decayed attention.
+        dmat = csum[:, :, None] - csum[:, None, :] + ib[:, None, :]
+        dmat = torch.where(causal, dmat - m_new[:, None, None, :],
+                           -torch.inf)                     # (B,Cq,Ck,H)
+        att = torch.einsum("bqhd,bkhd->bqkh", qb, kb) * scale
+        w = att * torch.exp(dmat)
+        intra = torch.einsum("bqkh,bkhd->bqhd", w, vb)
+        # Inter-chunk: the carried state, decayed to each position.
+        dec = torch.exp(csum + m[:, None] - m_new[:, None])  # (B, C, H)
+        qdec = qb * dec[..., None]
+        inter = torch.einsum("bqhd,bhde->bqhe", qdec, C) * scale
+        norm = w.sum(dim=2) \
+            + torch.einsum("bqhd,bhd->bqh", qdec, nvec) * scale
+        y = (intra + inter) / torch.maximum(
+            norm.abs()[..., None], torch.exp(-m_new)[:, None, :, None])
+        # State update: position k decays by the rest of the chunk's
+        # gates, exponent ig_k + (total - csum_k) - m_new.
+        kdec = torch.exp(ib + total[:, None] - csum - m_new[:, None])
+        kk = kb * kdec[..., None]
+        carry = torch.exp(total + m - m_new)
+        C = C * carry[..., None, None] \
+            + torch.einsum("bkhd,bkhe->bhde", kk, vb)
+        nvec = nvec * carry[..., None] + kk.sum(dim=1)
+        m = m_new
+        ys.append(y)
+    y = torch.cat(ys, dim=1).reshape(B, S, di).to(dtype)
+    y = y * F.silu(dense(params, "up", x, dtype))
+    out = dense(params, "out_proj", y, dtype)
+    if return_state:
+        return out, {"C": C, "n": nvec, "m": m}
+    return out
+
+
+def init_mlstm_cache(cfg, batch: int, *, device) -> dict:
+    H = cfg.n_heads
+    hd = cfg.d_inner // H
+    return {
+        "C": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
+                         device=device),
+        "n": torch.zeros((batch, H, hd), dtype=torch.float32, device=device),
+        "m": torch.full((batch, H), -torch.inf, dtype=torch.float32,
+                        device=device),
+    }
+
+
+def mlstm_step(params, cfg, x: torch.Tensor, cache: dict, *,
+               dtype=torch.bfloat16):
+    """O(1)-state decode step.  ``x``: (B, 1, d)."""
+    B = x.shape[0]
+    H = cfg.n_heads
+    di = cfg.d_inner
+    hd = di // H
+    qkv = dense(params, "qkv", x, dtype)
+    q, k, v = (_mlstm_heads(cfg, t)[:, 0].float()
+               for t in qkv.chunk(3, dim=-1))              # (B, H, hd)
+    gates = dense(params, "gates", x, dtype).float()[:, 0]
+    ig, fg = gates.chunk(2, dim=-1)                        # (B, H)
+    logf = -softplus(-fg)
+    C, nvec, m = cache["C"], cache["n"], cache["m"]
+    m_new = torch.maximum(logf + m, ig)
+    fdec = torch.exp(logf + m - m_new)
+    idec = torch.exp(ig - m_new)
+    C_new = C * fdec[..., None, None] \
+        + idec[..., None, None] * k[..., :, None] * v[..., None, :]
+    n_new = nvec * fdec[..., None] + idec[..., None] * k
+    scale = 1.0 / math.sqrt(hd)
+    num = torch.einsum("bhd,bhde->bhe", q, C_new) * scale
+    den = torch.einsum("bhd,bhd->bh", q, n_new) * scale
+    y = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    y = y.reshape(B, 1, di).to(dtype)
+    y = y * F.silu(dense(params, "up", x, dtype))
+    out = dense(params, "out_proj", y, dtype)
+    return out, {"C": C_new, "n": n_new, "m": m_new}
+
+
+# ======================================================================
+# sLSTM (scalar memory, sequential): the recurrence is kernel row 10
+# ======================================================================
+
+def init_slstm(p: Params, cfg):
+    d, di = cfg.d_model, cfg.d_inner
+    init_dense(p, "zifo", d, 4 * di)
+    p.add("r_zifo", (4, di), scale=1.0 / math.sqrt(di))   # diag recurrence
+    init_dense(p, "out_proj", di, d)
+
+
+def _state_dict(state: torch.Tensor) -> dict:
+    return dict(zip(_SLSTM_KEYS, state.unbind(0)))
+
+
+def slstm_forward(params, cfg, x: torch.Tensor, *, dtype=torch.bfloat16,
+                  return_state: bool = False):
+    """The sLSTM mixer over a sequence.  ``x``: (B, S, d)."""
+    if not return_state:
+        return fused_slstm_forward(params, cfg, x, dtype=dtype)
+    out, state = fused_slstm_forward(params, cfg, x, dtype=dtype,
+                                     return_state=True)
+    return out, _state_dict(state)
+
+
+def init_slstm_cache(cfg, batch: int, *, device) -> dict:
+    return _state_dict(init_slstm_state(batch, cfg.d_inner, device=device))
+
+
+def slstm_step(params, cfg, x: torch.Tensor, cache: dict, *,
+               dtype=torch.bfloat16):
+    """One token from the cached state: the recurrence at S = 1."""
+    state = torch.stack([cache[k] for k in _SLSTM_KEYS])
+    out, new = fused_slstm_forward(params, cfg, x, dtype=dtype, state=state,
+                                   return_state=True)
+    return out, _state_dict(new)

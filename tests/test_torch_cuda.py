@@ -11,7 +11,11 @@ Without a card every test skips with a reason.  Tolerance for the back
 projection: 1e-5·max(1, max|ref|), as ``chip_smoke.py`` (the kernels
 write every float operation with round-to-nearest intrinsics in the
 plain version's order, so they agree bitwise in practice).  The row
-encoder is held bitwise.
+encoder and the row gather are held bitwise (the gather to
+``F.embedding`` too, on in-range ids).  The sLSTM recurrence is held to
+its plain version at rtol = atol = 2e-4, the reference's own kernel
+tolerance (``tests/test_kernel_slstm.py``): ``expf``/``tanhf``/``log1pf``
+are not bitwise PyTorch's.
 """
 
 import numpy as np
@@ -224,3 +228,131 @@ def test_engine_folds_through_the_tuned_kernel(dev, tmp_path, monkeypatch):
     want = vols["cpu"]
     torch.testing.assert_close(vols[str(dev)], want, rtol=0,
                                atol=1e-4 * float(want.abs().max()))
+
+
+# ----------------------------------------------------------------------
+# The language-model kernels: rows 9 (row gather) and 10 (sLSTM)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V,D,n", [(1000, 768, 37), (50, 7, 9),
+                                   (300, 64, 1)])
+def test_row_gather_equals_plain_and_embedding_bitwise(dev, dtype, V, D, n):
+    """Row 9: zero rows for ids outside [0, V), bitwise equal to its plain
+    version, and to F.embedding on in-range ids; one launch per call, on
+    the 16-byte path (D = 768, 64) and the element path (D = 7)."""
+    from repro_torch.core.gather_ops import gather
+    from repro_torch.kernels.gather_ref import gather_ref
+
+    g = torch.Generator(device=dev).manual_seed(V)
+    table = torch.randn((V, D), generator=g, device=dev).to(dtype)
+    ids = torch.randint(0, V, (n,), generator=g, device=dev)
+    ids[0] = -1
+    if n > 2:
+        ids[1], ids[2] = V, V - 1
+    before = LAUNCHES["onehot_gather"]
+    got = gather(table, ids.reshape(1, n), impl="onehot")
+    torch.cuda.synchronize()
+    assert LAUNCHES["onehot_gather"] == before + 1
+    assert got.shape == (1, n, D) and got.dtype == dtype
+    assert torch.equal(got[0], gather_ref(table, ids))
+    ok = (ids >= 0) & (ids < V)
+    assert torch.equal(got[0][ok],
+                       torch.nn.functional.embedding(ids[ok], table))
+    assert not got[0][~ok].any()
+
+
+@pytest.mark.parametrize("B,S", [(1, 1), (3, 1), (2, 37), (4, 300)])
+@pytest.mark.parametrize("fresh", [True, False])
+def test_slstm_kernel_matches_plain(dev, B, S, fresh):
+    """Row 10: hidden states and final state against the plain recurrence
+    from a fresh (m = -inf) and a carried initial state."""
+    from repro_torch.kernels.slstm_ops import slstm_recurrence
+    from repro_torch.kernels.slstm_ref import (init_slstm_state,
+                                               slstm_recurrence_ref)
+
+    di = 96
+    g = torch.Generator(device=dev).manual_seed(B * 1000 + S)
+    zifo = torch.randn((B, S, 4, di), generator=g, device=dev)
+    r = torch.randn((4, di), generator=g, device=dev) * 0.3
+    if fresh:
+        state = init_slstm_state(B, di, device=dev)
+    else:
+        state = torch.randn((4, B, di), generator=g, device=dev)
+        state[1] = state[1].abs() + 1.0
+    before = LAUNCHES["slstm"]
+    hs, final = slstm_recurrence(zifo, r, state)
+    torch.cuda.synchronize()
+    assert LAUNCHES["slstm"] == before + 1
+    want_hs, want_final = slstm_recurrence_ref(zifo, r, state)
+    torch.testing.assert_close(hs, want_hs, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(final, want_final, rtol=2e-4, atol=2e-4)
+
+
+def _tiny_xlstm(impl):
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    return dataclasses.replace(ARCHS["xlstm-125m"].reduced(),
+                               gather_impl=impl)
+
+
+def test_model_on_the_card_matches_its_plain_versions(dev, monkeypatch):
+    """The reduced xlstm's forward logits with the kernels against the
+    same model with the plain versions, on the card, at 2e-4·max(1,
+    max|ref|) (float32 model)."""
+    from repro_torch.kernels import gather_kernel_ops, slstm_ops
+    from repro_torch.kernels.gather_ref import gather_ref
+    from repro_torch.kernels.slstm_ref import slstm_recurrence_ref
+    from repro_torch.models import forward, init_model
+
+    cfg = _tiny_xlstm("onehot")
+    model = init_model(cfg, seed=3, device=dev)
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    got, _ = forward(model, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert LAUNCHES["onehot_gather"] == 1
+    assert LAUNCHES["slstm"] == cfg.n_layers // 2
+    monkeypatch.setattr(gather_kernel_ops, "launch_onehot_gather",
+                        gather_ref)
+    monkeypatch.setattr(slstm_ops, "launch_slstm", slstm_recurrence_ref)
+    want, _ = forward(model, cfg, {"tokens": toks})
+    tol = 2e-4 * max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+def test_take_and_onehot_serve_identical_greedy_tokens(dev):
+    """The served path on the card: prompts of unequal length (grouped,
+    masked decode), greedy and temperature requests; the two gathers give
+    the same greedy tokens, and every prefill and decode step launched the
+    sLSTM kernel."""
+    from repro_torch.models import init_model
+    from repro_torch.serving import Request, ServingEngine
+
+    served = {}
+    for impl in ("take", "onehot"):
+        cfg = _tiny_xlstm(impl)
+        model = init_model(cfg, seed=0, device=dev)
+        eng = ServingEngine(cfg, model, n_slots=2, max_len=64, seed=5,
+                            device=dev)
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, 4 + 3 * i),
+                        max_tokens=6, temperature=0.8 if i % 2 else 0.0)
+                for i in range(4)]
+        for r in reqs:
+            eng.submit(r)
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        eng.run_until_done(max_ticks=100)
+        torch.cuda.synchronize()
+        assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
+        assert all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens)
+        assert LAUNCHES["slstm"] > 0
+        assert (LAUNCHES["onehot_gather"] > 0) == (impl == "onehot")
+        served[impl] = [r.out_tokens for r in reqs]
+    assert served["take"][0::2] == served["onehot"][0::2]

@@ -30,7 +30,16 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.dispatch, repro_torch.tune, "
             "repro_torch.tune.sweep, repro_torch.tune.audit, "
             "repro_torch.core.clipping, "
-            "repro_torch.core.phantom, repro_torch.core.quality\n"
+            "repro_torch.core.phantom, repro_torch.core.quality, "
+            "repro_torch.configs, repro_torch.core.gather_ops, "
+            "repro_torch.kernels.gather, repro_torch.kernels.gather_ref, "
+            "repro_torch.kernels.gather_kernel_ops, "
+            "repro_torch.kernels.slstm, repro_torch.kernels.slstm_ref, "
+            "repro_torch.kernels.slstm_ops, repro_torch.models, "
+            "repro_torch.models.layers, repro_torch.models.ssm, "
+            "repro_torch.models.blocks, repro_torch.models.model, "
+            "repro_torch.serving, repro_torch.serving.engine, "
+            "repro_torch.launch.serve\n"
             "print('\\n'.join(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
@@ -62,18 +71,27 @@ def test_default_device_is_the_card():
     from repro_torch.core.filtering import filter_projections
     from repro_torch.core.phantom import make_dataset
     from repro_torch.streaming import ReconstructionEngine
+    from repro_torch.configs import ARCHS
+    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_model
     from repro_torch.tune import autotune, sweep_strategies
 
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
     x = np.zeros((G.n_proj, G.n_v, G.n_u), np.float32)
     mats = np.zeros((G.n_proj, 3, 4), np.float32)
+    cfg = ARCHS["xlstm-125m"].reduced()
     for call in (lambda: filter_projections(x, G),
                  lambda: reconstruct(x, mats, G),
                  lambda: make_dataset(G),
                  lambda: ReconstructionEngine(G),
                  lambda: sweep_strategies(G),
-                 lambda: autotune(G)):
+                 lambda: autotune(G),
+                 lambda: init_model(cfg),
+                 lambda: init_cache(cfg, 2, 16),
+                 lambda: lm_params_from_reference({}, cfg),
+                 lambda: serve.main(["--requests", "1"])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
 
@@ -142,3 +160,24 @@ def test_strip_launcher_refuses_what_the_kernels_do_not_take():
                                                       codes)
     assert not pitched[..., 5:].any()
     assert pitch_stack(stack) is stack
+
+
+def test_lm_launchers_refuse_host_tensors():
+    from repro_torch.kernels.gather import launch_onehot_gather
+    from repro_torch.kernels.slstm import launch_slstm
+
+    with pytest.raises(ValueError, match="CUDA"):
+        launch_onehot_gather(torch.zeros(4, 8), torch.zeros(3,
+                                                           dtype=torch.long))
+    with pytest.raises(TypeError, match="int64"):
+        launch_onehot_gather(torch.zeros(4, 8), torch.zeros(3,
+                                                           dtype=torch.int32))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        launch_onehot_gather(torch.zeros(4, 8, dtype=torch.float64),
+                             torch.zeros(3, dtype=torch.long))
+    with pytest.raises(ValueError, match="CUDA"):
+        launch_slstm(torch.zeros(1, 2, 4, 8), torch.zeros(4, 8),
+                     torch.zeros(4, 1, 8))
+    with pytest.raises(TypeError, match="float32"):
+        launch_slstm(torch.zeros(1, 2, 4, 8, dtype=torch.float64),
+                     torch.zeros(4, 8), torch.zeros(4, 1, 8))
