@@ -102,6 +102,7 @@ STRIP_VARIANTS = (
 # The language-model phases (9-11): xlstm-125m at its published widths.
 LM_ARCH = "xlstm-125m"
 GATHER_NS = (4, 512, 8192)          # a decode tick, a prompt, a long batch
+GATHER_RETIME_N = 512               # row 9 against F.embedding, with spread
 SLSTM_SHAPES = ((1, 1), (4, 1), (1, 512), (8, 2048))   # (B, S)
 SLSTM_TOL = 2e-4         # rtol = atol: the reference's kernel test's
 # Operations of one sLSTM step per feature, a transcendental counted as
@@ -683,17 +684,72 @@ def strip_tiling(geom, dev, mats):
     fail("no strip tile's windows fit a block")
 
 
-def check_strip(geom, problem, tile, window):
-    """Phase 6: K3 (depth 2 and 4), K4 and K5 at L = 512 on each wire at
-    P = 1, 4 and 8, each through the wrapper (which checks every window
-    with the planner first) against its plain version on the same wire
-    stack, max |d| = 0, and on float32 against row 1 too; then each
+def base_window(geom, dev):
+    """The planner's window at the reference's base tile STRIP_TILE over
+    every matrix, rounded up to 8 rows and 32 columns (clamped into the
+    padded detector): too wide for a ring of windows, while the boxes the
+    kernels stage there are small."""
+    from repro_torch.core import clipping
+    from repro_torch.core.backproject import GeomStatic
+    from repro_torch.core.geometry import projection_matrices
+    from repro_torch.kernels.backproject_ops import clamp_tiles
+
+    ty, chunk = STRIP_TILE
+    nb, nw = clipping.strip_needs(geom, projection_matrices(geom),
+                                  chunk=chunk, ty=ty, device=dev).max(axis=0)
+    _, _, band, width = clamp_tiles(GeomStatic.of(geom), ty, chunk,
+                                    int(-(-nb // 8) * 8),
+                                    int(-(-nw // 32) * 32))
+    return band, width
+
+
+def box_bytes(geom, mats, tile, window, wire):
+    """Bytes K3/K4 stage per voxel and projection over every tile of
+    every z-plane of ``mats``: the mean and the largest box
+    (``clipping.corner_boxes`` in the kernels' layout, whole 16-byte
+    units per row), and the whole window as a kernel staging windows
+    would copy it (4-byte words per row)."""
+    import repro_torch.kernels.backproject_ref as R
+    from repro_torch.core import clipping
+    from repro_torch.core.backproject import GeomStatic
+
+    gs = GeomStatic.of(geom)
+    ty, chunk = tile
+    band, width = window
+    isz = WIRE_BYTES[wire]
+    pr, pc = R.padded_dims(gs, band, width, isz)
+    total, n, big = 0.0, 0, 0
+    for A in mats:
+        rows, units = clipping.box_slot_dims(clipping.corner_boxes(
+            gs, A[None], ty=ty, chunk=chunk, band=band, width=width,
+            pad_rows=pr, pad_cols=pc), isz)
+        b = rows * units * 16
+        total += float(b.sum(dtype=torch.float64))
+        n += b.numel()
+        big = max(big, int(b.max()))
+    vox = ty * chunk
+    return {"mean": total / n / vox, "largest": big / vox,
+            "window": band * ((width * isz + 3) // 4 + 1) * 4 / vox}
+
+
+def check_strip(geom, problem, tile, window, variants=STRIP_VARIANTS):
+    """Phase 6: each of ``variants`` (K3 at depth 2 and 4, K4, K5) at
+    L = 512 on each wire at P = 1, 4 and 8, each through the wrapper
+    (which checks every window with the planner first) against its plain
+    version on the same wire stack, max |d| = 0, and on float32 against
+    row 1 too; the bytes K3/K4 stage per voxel and projection, their
+    slots, and the count of boxes a slot cut, which must be 0; then each
     kernel's time per launch, and its plain version's."""
     import repro_torch.kernels.backproject_ref as R
+    from repro_torch.core import clipping
     from repro_torch.core.backproject import GeomStatic
     from repro_torch.kernels import backproject_batch
-    from repro_torch.kernels.backproject import (launch_backproject,
-                                                 launch_strip, pitch_stack)
+    from repro_torch.kernels.backproject import (SMEM_LIMIT,
+                                                 launch_backproject,
+                                                 launch_strip, pitch_stack,
+                                                 reset_strip_clamped,
+                                                 strip_clamped,
+                                                 strip_smem_bytes)
     from repro_torch.kernels.backproject_ops import (clamp_tiles,
                                                      shared_window_dims)
     from repro_torch.kernels.quant import launch_quantize_rows
@@ -703,6 +759,7 @@ def check_strip(geom, problem, tile, window):
     L = geom.L
     ty, chunk = tile
     band, width = window
+    dev = imgs.device
     plain_fn = {"strip_db": R.backproject_strip_ref,
                 "strip_micro": R.backproject_micro_ref,
                 "strip_shared": R.backproject_shared_ref}
@@ -717,26 +774,43 @@ def check_strip(geom, problem, tile, window):
             padded, scales = launch_quantize_rows(padded)
         values = R.decode_wire(padded, scales)
         pitched = pitch_stack(padded)
-        for key, label, flags in STRIP_VARIANTS:
+        staged = box_bytes(geom, mats, tile, window, wire)
+        print(f"  tile {tile}, window {window}, {wire}: K3/K4 stage "
+              f"{staged['mean']:.2f} B per voxel and projection (mean box), "
+              f"{staged['largest']:.2f} (largest box); the whole window "
+              f"{staged['window']:.2f}")
+        for key, label, flags in variants:
             kind = key[len("strip_"):]
             for P in (1, PBATCH, N_CHECK):
                 if key == "strip_shared":
                     b, w = shared_window_dims(
                         geom, mats[:P], ty=ty, chunk=chunk, pbatch=P,
-                        device=imgs.device)
+                        device=dev)
                     _, _, b, w = clamp_tiles(gs, ty, chunk, b, w)
                 else:
                     b, w = band, width
                 pr, pc = R.padded_dims(gs, b, w, WIRE_BYTES[wire])
                 win = dict(ty=ty, chunk=chunk, band=b, width=w,
                            pad_rows=pr, pad_cols=pc)
-                extra = {}
+                extra, slot = {}, None
                 if kind == "db":
                     extra = {"depth": flags["db_depth"]}
                 elif kind == "micro":
                     extra = {"group": flags["micro_group"],
                              "gband": flags["micro_band"],
                              "gwidth": flags["micro_width"]}
+                if kind != "shared":
+                    slot = tuple(int(n) for n in clipping.strip_box_slots(
+                        gs, mats[:P], itemsize=WIRE_BYTES[wire],
+                        **win).max(axis=0))
+                smem = strip_smem_bytes(
+                    kind, P, ty=ty, chunk=chunk, band=b, width=w,
+                    itemsize=WIRE_BYTES[wire], slot=slot,
+                    **({"depth": extra["depth"]} if kind == "db" else {}))
+                if smem > SMEM_LIMIT:
+                    fail(f"{label} {wire} P={P} at tile {tile}: {smem} B of "
+                         f"shared memory per block")
+                reset_strip_clamped()
                 out = backproject_batch(
                     vol0.clone(), imgs[:P], mats[:P], geom, pbatch=P,
                     strip_dtype=wire, ty=ty, chunk=chunk,
@@ -771,11 +845,15 @@ def check_strip(geom, problem, tile, window):
                     kind=kind, z0=0, O=gs.O, MM=gs.MM, n_u=gs.n_u,
                     n_v=gs.n_v,
                     scales=None if scales is None else scales[:P]
-                    .contiguous(), **win, **extra), reps=5)
+                    .contiguous(), slot=slot, **win, **extra), reps=5)
                 del work
+                clamped = strip_clamped(dev)
                 bms, by = bound_ms(L, L, P, rows, cols, wire)
-                print(f"  {label} {wire} P={P} (band {b}, width {w}): "
-                      f"max|d| vs plain {err:.1e}"
+                print(f"  {label} {wire} P={P} (band {b}, width {w}"
+                      + ("" if slot is None else
+                         f"; slot {slot[0]} x {slot[1] * 16} B, "
+                         f"{smem} B per block, {clamped} boxes cut")
+                      + f"): max|d| vs plain {err:.1e}"
                       + ("" if err1 is None else
                          f", vs row 1 {err1:.1e}")
                       + f"; {ms:.4f} ms per launch (bound {bms:.4f}, "
@@ -783,10 +861,16 @@ def check_strip(geom, problem, tile, window):
                 if err != 0.0 or (err1 is not None and err1 != 0.0):
                     fail(f"{label} on {wire} at P={P} differs from its "
                          f"plain version or from row 1")
+                if clamped:
+                    fail(f"{label} on {wire} at P={P}: {clamped} boxes "
+                         f"cut by their slot")
                 res[(label, wire, P)] = {"err": err, "err_row1": err1,
                                          "ms": ms, "plain_ms": plain_ms,
                                          "bound_ms": bms, "bound_by": by,
-                                         "band": b, "width": w}
+                                         "band": b, "width": w,
+                                         "slot": slot, "smem": smem,
+                                         "clamped": clamped,
+                                         "staged_B": staged}
         del padded, values, pitched, scales
         torch.cuda.empty_cache()
     return res
@@ -939,6 +1023,8 @@ def serve_tuned(geom, dev, mats, filt, v32, tile, window):
     from repro_torch.api import ExecutionPlan
     from repro_torch.core.backproject import reconstruct
     from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.backproject import (reset_strip_clamped,
+                                                 strip_clamped)
 
     ty, chunk = tile
     band, width = window
@@ -959,6 +1045,7 @@ def serve_tuned(geom, dev, mats, filt, v32, tile, window):
             plan = plan._replace(pallas=tuple(sorted(tile.items())),
                                  use_pallas=True)
         torch.cuda.synchronize()
+        reset_strip_clamped()
         for k in LAUNCHES:
             LAUNCHES[k] = 0
         t0 = time.perf_counter()
@@ -966,16 +1053,21 @@ def serve_tuned(geom, dev, mats, filt, v32, tile, window):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n = LAUNCHES[key]
+        clamped = strip_clamped(dev)
         top = float(v32.abs().max())
         err = float((v - v32).abs().max())
         print(f"  {key} (P={P}): {n} launches, {wall:.2f} s for "
-              f"{geom.n_proj} views; vs the served float32 volume max|d| "
-              f"{err:.3e} (bound {TOL_STREAM * top:.3e})")
+              f"{geom.n_proj} views, {clamped} boxes cut; vs the served "
+              f"float32 volume max|d| {err:.3e} (bound "
+              f"{TOL_STREAM * top:.3e})")
+        if clamped:
+            fail(f"{key}: {clamped} boxes cut by their slot")
         if n != -(-geom.n_proj // P) or sum(LAUNCHES.values()) != n:
             fail(f"{key}: {dict(LAUNCHES)} launches for one scan at P={P}")
         if not err <= TOL_STREAM * top:
             fail(f"{key}: the scan disagrees with the served volume")
-        out[key] = {"launches": n, "wall_s": wall, "err": err, "P": P}
+        out[key] = {"launches": n, "wall_s": wall, "err": err, "P": P,
+                    "clamped": clamped}
         del v
     torch.cuda.empty_cache()
     return out
@@ -1006,12 +1098,18 @@ def per_call_ms(fn, inner: int, reps: int = 5) -> float:
 
 
 def device_ms(fn, inner: int = 20, reps: int = 5) -> float:
-    """ms per call of ``fn`` on the device alone: the card first spins
-    (``torch.cuda._sleep``) while the host enqueues ``inner`` calls
-    between two CUDA events, so the events time the kernels back to back
-    and not the host's launch rate.  The spin is doubled until the host
-    finished enqueueing before the card reached the first event.
-    Median of ``reps``."""
+    """ms per call of ``fn`` on the device alone: the median of
+    :func:`device_times`."""
+    return statistics.median(device_times(fn, inner, reps))
+
+
+def device_times(fn, inner: int = 20, reps: int = 5) -> list[float]:
+    """``reps`` timings, in ms per call, of ``fn`` on the device alone:
+    the card first spins (``torch.cuda._sleep``) while the host enqueues
+    ``inner`` calls between two CUDA events, so the events time the
+    kernels back to back and not the host's launch rate.  The spin is
+    doubled until the host finished enqueueing before the card reached
+    the first event."""
     fn()
     torch.cuda.synchronize()
     spin, times = 4_000_000, []
@@ -1031,7 +1129,7 @@ def device_ms(fn, inner: int = 20, reps: int = 5) -> float:
             continue
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
+    return times
 
 
 def bytes_bound(nbytes: float, flops: float = 0.0):
@@ -1094,8 +1192,39 @@ def check_gather(cfg, dev):
             res[(name, N)] = {"err": err, "ms": ms, "paced_ms": paced,
                               "plain_ms": plain, "library_ms": lib,
                               "bound_ms": bms, "bound_by": by}
+            if N == GATHER_RETIME_N:
+                res[(name, N)]["retime"] = retime_gather(
+                    lambda: launch_onehot_gather(table, next(ring)),
+                    lambda: F.embedding(next(clamped), table), name, N)
         del table
     return res
+
+
+def retime_gather(kernel, library, name: str, N: int) -> dict:
+    """Row 9 against ``F.embedding`` on the device, in turns (kernel,
+    library, library, kernel) of ``device_times`` with 5 repetitions
+    each: the medians and the spread (max - min) of each side's 10
+    timings."""
+    k, lib = [], []
+    for first, second, a, b in ((kernel, library, k, lib),
+                                (library, kernel, lib, k)):
+        a += device_times(first)
+        b += device_times(second)
+    out = {}
+    for side, t in (("kernel", k), ("F.embedding", lib)):
+        out[side] = {"median_ms": statistics.median(t), "min_ms": min(t),
+                     "max_ms": max(t)}
+    gap = out["kernel"]["median_ms"] - out["F.embedding"]["median_ms"]
+    spread = max(out[s]["max_ms"] - out[s]["min_ms"] for s in out)
+    out["gap_ms"], out["spread_ms"] = gap, spread
+    print(f"  row 9 re-timed, {name} N={N}, 10 timings each in turns: "
+          f"kernel median {out['kernel']['median_ms']:.5f} ms "
+          f"[{out['kernel']['min_ms']:.5f}, {out['kernel']['max_ms']:.5f}]"
+          f", F.embedding {out['F.embedding']['median_ms']:.5f} ms "
+          f"[{out['F.embedding']['min_ms']:.5f}, "
+          f"{out['F.embedding']['max_ms']:.5f}]; kernel - F.embedding "
+          f"{gap:+.5f} ms against a spread of {spread:.5f} ms")
+    return out
 
 
 def slstm_bound(B: int, S: int, di: int):
@@ -1461,6 +1590,12 @@ def run(geom, dev, card: str, build_s: float) -> dict:
     tile, window = strip_tiling(geom, dev, sproblem[1])
     print(f"  tile {tile}, strip {window} (every matrix's need)")
     strip = check_strip(geom, sproblem, tile, window)
+    base = base_window(geom, dev)
+    print(f"  K3 and K4 at the reference's base tile {STRIP_TILE}, "
+          f"the planner's window {base}")
+    strip_base = check_strip(geom, sproblem, STRIP_TILE, base,
+                             [v for v in STRIP_VARIANTS
+                              if v[0] != "strip_shared"])
     del sproblem
     torch.cuda.empty_cache()
 
@@ -1513,7 +1648,8 @@ def run(geom, dev, card: str, build_s: float) -> dict:
                   "source": src + "backproject_strip.cu",
                   "replaces": f"src/repro/kernels/backproject.py:{line}",
                   "launches": tuned[name]["launches"],
-                  "max_abs_err": max(v["err"] for key, v in strip.items()
+                  "max_abs_err": max(v["err"] for d in (strip, strip_base)
+                                     for key, v in d.items()
                                      if key[0] in labels),
                   "ms": r["ms"], "plain_ms": r["plain_ms"],
                   "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1554,6 +1690,9 @@ def run(geom, dev, card: str, build_s: float) -> dict:
                           "psnr_vs_f32_and_drop": w["score16"]},
         "planner": planner, "strip_tile": tile, "strip_window": window,
         "strip": {"/".join(map(str, key)): v for key, v in strip.items()},
+        "strip_base_tile": list(STRIP_TILE), "strip_base_window": base,
+        "strip_base": {"/".join(map(str, key)): v
+                       for key, v in strip_base.items()},
         "auto": {k_: v for k_, v in auto.items()
                  if k_ != "served_launch_ms"},
         "auto_served_launch_ms_median": statistics.median(

@@ -57,6 +57,9 @@ __all__ = [
     "shared_window_requirement",
     "shared_window_cover",
     "corner_lows",
+    "corner_boxes",
+    "box_slot_dims",
+    "strip_box_slots",
 ]
 
 # Margin (pixels) added around the analytic tap bounds: one for the floor()
@@ -481,16 +484,13 @@ def shared_window_requirement(geom: Geometry, matrices, *, ty: int,
     return need_band, need_width
 
 
-def corner_lows(geom, A: torch.Tensor, ty: int, chunk: int, zs=None):
-    """The window origin the strip kernels compute for every ``(ty,
-    chunk)`` tile of each matrix of ``A`` (``(n, 3, 4)``): the floor of
-    the least tap coordinate over the tile's four corner voxels, clipped
-    into the bordered detector, in float32 with the kernels' (and
-    ``plane_coords``') operations in their order, clamped at 0.  (A
-    kernel also clamps it so its window ends inside the padded image.)
-    ``geom`` is a :class:`Geometry` or a ``GeomStatic``; ``zs`` the
-    global z-planes (default: all).  Returns ``(rows, cols)``, int64
-    ``(n, len(zs), L / ty, L / chunk)``."""
+def _corner_span(geom, A: torch.Tensor, ty: int, chunk: int, zs=None):
+    """The least and greatest tap row and column over the four corner
+    voxels of every ``(ty, chunk)`` tile of each matrix of ``A``
+    (``(n, 3, 4)``), clipped into the bordered detector, in float32 with
+    the kernels' (and ``plane_coords``') operations in their order, and
+    whether some corner has ``w <= 1e-6``.  Each is ``(n, len(zs), L /
+    ty, L / chunk)``; ``zs`` the global z-planes (default: all)."""
     L, dev = geom.L, A.device
     A32 = A.to(torch.float32)
     if zs is None:
@@ -503,7 +503,7 @@ def corner_lows(geom, A: torch.Tensor, ty: int, chunk: int, zs=None):
         return A32[:, i, j].reshape(-1, 1, 1, 1)
 
     wz = world(zs).reshape(1, -1, 1, 1)
-    lo_r = lo_c = None
+    lo_r = hi_r = lo_c = hi_c = flat = None
     for dy in (0, ty - 1):
         for dx in (0, chunk - 1):
             wy = world(torch.arange(0, L, ty, device=dev) + dy)
@@ -515,10 +515,122 @@ def corner_lows(geom, A: torch.Tensor, ty: int, chunk: int, zs=None):
             r = torch.where(w > 1e-6, 1.0 / w, 0.0)
             ix = torch.clamp(u * r, -1.0, float(geom.n_u))
             iy = torch.clamp(v * r, -1.0, float(geom.n_v))
-            lo_c = ix if lo_c is None else torch.minimum(lo_c, ix)
-            lo_r = iy if lo_r is None else torch.minimum(lo_r, iy)
+            if lo_r is None:
+                lo_r, hi_r, lo_c, hi_c, flat = iy, iy, ix, ix, ~(w > 1e-6)
+                continue
+            lo_r, hi_r = torch.minimum(lo_r, iy), torch.maximum(hi_r, iy)
+            lo_c, hi_c = torch.minimum(lo_c, ix), torch.maximum(hi_c, ix)
+            flat = flat | ~(w > 1e-6)
+    return lo_r, hi_r, lo_c, hi_c, flat
+
+
+def corner_lows(geom, A: torch.Tensor, ty: int, chunk: int, zs=None):
+    """The window origin the strip kernels compute for every ``(ty,
+    chunk)`` tile of each matrix of ``A`` (``(n, 3, 4)``): the floor of
+    the least tap coordinate over the tile's four corner voxels, clipped
+    into the bordered detector, in float32 with the kernels' (and
+    ``plane_coords``') operations in their order, clamped at 0.  (A
+    kernel also clamps it so its window ends inside the padded image.)
+    ``geom`` is a :class:`Geometry` or a ``GeomStatic``; ``zs`` the
+    global z-planes (default: all).  Returns ``(rows, cols)``, int64
+    ``(n, len(zs), L / ty, L / chunk)``."""
+    lo_r, _, lo_c, _, _ = _corner_span(geom, A, ty, chunk, zs)
     return (torch.clamp(torch.floor(lo_r).to(torch.int64), min=0),
             torch.clamp(torch.floor(lo_c).to(torch.int64), min=0))
+
+
+# Pixels added on each side of a tile's corner tap box against the
+# float32 rounding of its voxels' own coordinates (the kernels'
+# kBoxMargin).
+_BOX_MARGIN = 1
+
+# (geometry, tile, window, padded image, itemsize, matrix bytes) ->
+# (rows, units) of the largest staged box.
+_BOXES: dict = {}
+
+
+def corner_boxes(geom, A: torch.Tensor, *, ty: int, chunk: int, band: int,
+                 width: int, pad_rows: int, pad_cols: int, zs=None):
+    """The box of taps the strip kernels K3 and K4 stage for every
+    ``(ty, chunk)`` tile of each matrix of ``A`` (``(n, 3, 4)``), in
+    padded image coordinates: rows ``[r0, r1)`` and columns ``[c0,
+    c1)``, each int64 ``(n, len(zs), L / ty, L / chunk)``.
+
+    On a z-plane ``u/w`` and ``v/w`` are linear-fractional in ``(x,
+    y)``, so where ``w > 0`` on the tile (``w`` is affine: at its four
+    corners) every voxel's taps lie between those of the four corner
+    voxels: rows ``[floor(min iy) + 1, floor(max iy) + 3)`` and the same
+    for the columns, from :func:`_corner_span`, widened by
+    :data:`_BOX_MARGIN` on each side.  A tile with a corner at ``w <=
+    1e-6`` takes its whole window.  The box is cut to the tile's
+    ``(band, width)`` window (at :func:`corner_lows`' origin, clamped so
+    the window ends inside the ``(pad_rows, pad_cols)`` image) and to
+    the bordered image; it is empty where ``r1 <= r0`` or ``c1 <= c0``.
+    """
+    lo_r, hi_r, lo_c, hi_c, flat = _corner_span(geom, A, ty, chunk, zs)
+    fr, fc = torch.floor(lo_r).to(torch.int64), \
+        torch.floor(lo_c).to(torch.int64)
+    wr = torch.clamp(torch.clamp(fr, min=0), max=pad_rows - band)
+    wc = torch.clamp(torch.clamp(fc, min=0), max=pad_cols - width)
+    gr = torch.floor(hi_r).to(torch.int64) + 3 + _BOX_MARGIN
+    gc = torch.floor(hi_c).to(torch.int64) + 3 + _BOX_MARGIN
+    r0 = torch.where(flat, wr, torch.maximum(wr, fr + 1 - _BOX_MARGIN))
+    c0 = torch.where(flat, wc, torch.maximum(wc, fc + 1 - _BOX_MARGIN))
+    r1 = torch.where(flat, wr + band, torch.minimum(wr + band, gr))
+    c1 = torch.where(flat, wc + width, torch.minimum(wc + width, gc))
+    return (r0, torch.clamp(r1, max=geom.n_v + 2), c0,
+            torch.clamp(c1, max=geom.n_u + 2))
+
+
+def box_slot_dims(boxes, itemsize: int):
+    """The rows and the 16-byte units per row a kernel stages for each
+    box of :func:`corner_boxes` on a wire of ``itemsize`` bytes (a row
+    from the unit holding its first element): ``(rows, units)``, both 0
+    for an empty box."""
+    r0, r1, c0, c1 = boxes
+    empty = (r1 <= r0) | (c1 <= c0)
+    units = (c1 * itemsize + 15) // 16 - (c0 * itemsize) // 16
+    return ((r1 - r0).masked_fill(empty, 0), units.masked_fill(empty, 0))
+
+
+def strip_box_slots(geom, matrices, *, ty: int, chunk: int, band: int,
+                    width: int, pad_rows: int, pad_cols: int,
+                    itemsize: int, device=None) -> np.ndarray:
+    """Each matrix's largest staged box over every tile and z-plane: an
+    ``(n, 2)`` int64 array of ``(rows, units)`` (:func:`box_slot_dims`
+    of :func:`corner_boxes`), from which a launch of K3 or K4 sizes its
+    slots.  ``matrices`` are taken in float32, as the kernels take them;
+    each matrix's result is memoised, and the matrices not seen before
+    are computed in batches on ``device`` (default: where the matrices
+    lie)."""
+    if geom.L % ty or geom.L % chunk:
+        raise ValueError(f"ty={ty} and chunk={chunk} must divide "
+                         f"L={geom.L}")
+    if torch.is_tensor(matrices):
+        m32 = matrices.detach().to("cpu", torch.float32).numpy()
+    else:
+        m32 = np.asarray(matrices, np.float32)
+    m32 = m32.reshape(-1, 3, 4)
+    head = (_gkey(geom), ty, chunk, band, width, pad_rows, pad_cols,
+            int(itemsize))
+    keys = [head + (m.tobytes(),) for m in m32]
+    todo = [i for i, k in enumerate(keys) if k not in _BOXES]
+    if todo:
+        dev = _device(matrices, device)
+        per = geom.L * (geom.L // ty) * (geom.L // chunk)
+        for s, e in _batches(len(todo), per):
+            idx = todo[s:e]
+            boxes = corner_boxes(
+                geom, torch.as_tensor(m32[idx], device=dev), ty=ty,
+                chunk=chunk, band=band, width=width, pad_rows=pad_rows,
+                pad_cols=pad_cols)
+            rows, units = box_slot_dims(boxes, itemsize)
+            del boxes
+            rows = rows.amax(dim=(1, 2, 3)).cpu()
+            units = units.amax(dim=(1, 2, 3)).cpu()
+            for j, i in enumerate(idx):
+                _remember(_BOXES, keys[i], (int(rows[j]), int(units[j])))
+    return np.array([_BOXES[k] for k in keys], np.int64).reshape(-1, 2)
 
 
 def shared_window_cover(geom: Geometry, matrices, *, ty: int, chunk: int,

@@ -16,8 +16,12 @@ and, at P = 1, ``::backproject_kernel_db``), K4 ``strip_micro``
 ``::backproject_kernel_micro``) and K5 ``strip_shared``
 (``::backproject_kernel_batch_shared``).  :func:`launch_strip` launches
 one of them; :func:`strip_smem_bytes` is the shared-memory byte model
-both it and the tuner's candidate screen use.  The libraries are built at
-first use (:mod:`._build`).
+both it and the tuner's candidate screen use.  K3 and K4 stage per tile
+and projection the box of taps the tile reads, in slots sized by the
+launch's largest box (:func:`repro_torch.core.clipping.strip_box_slots`);
+a box its slot had to cut is counted on the card
+(:func:`strip_clamped`).  The libraries are built at first use
+(:mod:`._build`).
 """
 
 from __future__ import annotations
@@ -30,8 +34,9 @@ from . import _build
 
 __all__ = ["LAUNCHES", "MAX_PBATCH", "SMEM_LIMIT", "STRIP_KINDS",
            "WIRE_ITEMSIZE", "WIRE_LAUNCH_KEYS", "launch_backproject",
-           "launch_strip", "pitch_stack", "strip_launch_key",
-           "strip_smem_bytes"]
+           "launch_strip", "pitch_stack", "reset_strip_clamped",
+           "strip_clamped", "strip_launch_key", "strip_smem_bytes",
+           "window_units"]
 
 # The LAUNCHES key suffix of each wire's instance.
 _WIRE_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16",
@@ -156,22 +161,41 @@ def strip_launch_key(kind: str, wire: torch.dtype, P: int) -> str:
 
 def _row_words(width: int, itemsize: int) -> int:
     # Any window row spans at most this many 4-byte words of its image
-    # row, wherever it starts.
+    # row, wherever it starts (K5 stages words).
     return (width * itemsize + 3) // 4 + 1
+
+
+def window_units(width: int, itemsize: int) -> int:
+    """The most 16-byte units a row of a ``width``-element window spans,
+    wherever it starts: the largest row a K3/K4 slot can need."""
+    return (width * itemsize + 15) // 16 + 1
+
+
+# Bytes of one K3/K4 item record (window origin and box) in shared
+# memory beside its slot.
+_ITEM_BYTES = 32
 
 
 def strip_smem_bytes(kind: str, P: int, *, ty: int, chunk: int, band: int,
                      width: int, itemsize: int, depth: int = 2,
-                     group: int = 8) -> int:
+                     group: int = 8,
+                     slot: tuple[int, int] | None = None) -> int:
     """Dynamic shared memory of one block of strip kernel ``kind``: the
-    ``P x 12`` matrices, the staged windows at the wire's ``itemsize``
-    (``depth`` slots for K3, 2 for K4, the ``P``-deep slab for K5) and
-    K4's reduction scratch where a micro group does not divide a warp.
-    The int8 scale block is read from device memory, not staged.  The
-    launcher refuses a configuration above :data:`SMEM_LIMIT`."""
-    slots = {"db": depth, "micro": 2, "shared": P}[kind]
-    n = (P * 48 + 15) // 16 * 16 + slots * band * _row_words(
-        width, itemsize) * 4
+    ``P x 12`` matrices, then K5's ``P``-deep slab of ``(band, width)``
+    windows at the wire's ``itemsize`` (whole 4-byte words per row), or
+    the rings of K3 (``depth`` slots) and K4 (2): per slot an item record
+    and ``slot = (rows, units)`` 16-byte units, and K4's reduction
+    scratch where a micro group does not divide a warp.  ``slot=None``
+    takes the window's worst case, ``(band, window_units(width,
+    itemsize))``, which no box exceeds: the tuner's screen.  The int8
+    scale block is read from device memory, not staged.  The launcher
+    refuses a configuration above :data:`SMEM_LIMIT`."""
+    n = (P * 48 + 15) // 16 * 16
+    if kind == "shared":
+        return n + P * band * _row_words(width, itemsize) * 4
+    rows, units = (band, window_units(width, itemsize)) if slot is None \
+        else slot
+    n += {"db": depth, "micro": 2}[kind] * (_ITEM_BYTES + rows * units * 16)
     if kind == "micro" and 32 % group:
         n += 2 * ty * chunk * 4
     return n
@@ -179,9 +203,9 @@ def strip_smem_bytes(kind: str, P: int, *, ty: int, chunk: int, band: int,
 
 def pitch_stack(stack: torch.Tensor) -> torch.Tensor:
     """``stack`` (``(P, rows, cols)`` on the wire) with each row padded
-    with zeros to whole 4-byte words, as the strip kernels take it (a
+    with zeros to whole 16-byte units, as the strip kernels take it (a
     stack already so returned as it is)."""
-    per = 4 // stack.element_size()
+    per = 16 // stack.element_size()
     cols = int(stack.shape[-1])
     pitch = -(-cols // per) * per
     if pitch == cols:
@@ -191,8 +215,38 @@ def pitch_stack(stack: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# One int32 per device: the K3/K4 items whose box their slot cut.
+_CLAMPED: dict = {}
+
+
+def _clamp_counter(device: torch.device) -> torch.Tensor:
+    c = _CLAMPED.get(device)
+    if c is None:
+        c = _CLAMPED[device] = torch.zeros(1, dtype=torch.int32,
+                                           device=device)
+    return c
+
+
+def strip_clamped(device) -> int:
+    """The K3/K4 items on ``device`` whose box their slot had to cut since
+    the last :func:`reset_strip_clamped` (it synchronises).  The slots
+    are sized by the largest box, so the count stays 0; a cut box drops
+    taps."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    c = _CLAMPED.get(device)
+    return 0 if c is None else int(c.item())
+
+
+def reset_strip_clamped() -> None:
+    """Set every device's clamp count to 0."""
+    for c in _CLAMPED.values():
+        c.zero_()
+
+
 _STRIP_ARGTYPES = ([_I, _I, _P, _P, _P, _P] + [_I] * 9 + [_F, _F]
-                   + [_I] * 10 + [_P])
+                   + [_I] * 12 + [_P, _P])
 
 
 def _strip_lib():
@@ -208,8 +262,8 @@ def launch_strip(volume: torch.Tensor, stack: torch.Tensor,
                  MM: float, n_u: int, n_v: int, ty: int, chunk: int,
                  band: int, width: int, pad_rows: int, pad_cols: int,
                  depth: int = 2, group: int = 8, gband: int = 8,
-                 gwidth: int = 32, scales: torch.Tensor | None = None
-                 ) -> torch.Tensor:
+                 gwidth: int = 32, scales: torch.Tensor | None = None,
+                 slot: tuple[int, int] | None = None) -> torch.Tensor:
     """``volume += Σ_p bilinear(stack[p]) / w_p²`` through strip kernel
     ``kind`` (``"db"``, ``"micro"`` or ``"shared"``) on the card, in
     place.
@@ -217,15 +271,20 @@ def launch_strip(volume: torch.Tensor, stack: torch.Tensor,
     ``volume``: ``(nz, L, L)`` float32 from global plane ``z0``;
     ``stack``: ``(P, n_v + 2, pitch)`` bordered images on the wire
     (float32, bfloat16, or int8 codes with ``scales`` ``(P, 2, n_v +
-    2)``), each row zero-padded to whole 4-byte words
-    (:func:`pitch_stack`); ``mats``: ``(P, 3, 4)`` float32.  The tile
-    ``(ty, chunk)`` divides ``L`` and has at most 1024 voxels; the window
-    ``(band, width)`` is clamped into the ``(pad_rows, pad_cols)`` image
+    2)``), each row zero-padded to whole 16-byte units (4-byte words
+    for K5; :func:`pitch_stack`); ``mats``: ``(P, 3, 4)`` float32.  The
+    tile ``(ty, chunk)`` divides ``L`` and has at most 1024 voxels; the
+    window ``(band, width)`` is clamped into the ``(pad_rows,
+    pad_cols)`` image
     (:func:`repro_torch.kernels.backproject_ref.padded_dims`); K3 rings
     ``depth`` (2..8) slots; K4's ``group`` divides ``chunk``, its window
-    ``(gband, gwidth)`` lies in the strip.  The caller has checked the
-    windows against the planner.  Raises on anything else, and when the
-    launch is refused.
+    ``(gband, gwidth)`` lies in the strip.  ``slot``: K3's and K4's
+    ``(rows, units)`` per slot, at least the launch's largest box
+    (:func:`repro_torch.core.clipping.strip_box_slots`, max over its
+    matrices) and at most the window's; ``None`` takes the window's.  A
+    box its slot cuts is counted (:func:`strip_clamped`).  The caller
+    has checked the windows against the planner.  Raises on anything
+    else, and when the launch is refused.
     """
     if kind not in STRIP_KINDS:
         raise ValueError(f"unknown strip kernel {kind!r}; want one of "
@@ -258,11 +317,13 @@ def launch_strip(volume: torch.Tensor, stack: torch.Tensor,
     P = int(stack.shape[0]) if stack.ndim == 3 else -1
     rows, cols = n_v + 2, n_u + 2
     isz = stack.element_size()
+    unit = 4 if kind == "shared" else 16
     if (stack.ndim != 3 or stack.shape[1] != rows or stack.shape[2] < cols
-            or (stack.shape[2] * isz) % 4):
+            or (stack.shape[2] * isz) % unit or stack.data_ptr() % unit):
         raise ValueError(
-            f"stack must be (P, {rows}, pitch) with pitch >= {cols} and "
-            f"whole 4-byte rows (pitch_stack); got {tuple(stack.shape)}")
+            f"stack must be (P, {rows}, pitch) with pitch >= {cols}, "
+            f"{unit}-byte aligned with whole {unit}-byte rows "
+            f"(pitch_stack); got {tuple(stack.shape)}")
     if mats.shape != (P, 3, 4) or not 1 <= P <= MAX_PBATCH:
         raise ValueError(f"want mats (P, 3, 4) with 1 <= P <= "
                          f"{MAX_PBATCH}; got {tuple(mats.shape)}")
@@ -283,9 +344,15 @@ def launch_strip(volume: torch.Tensor, stack: torch.Tensor,
             f"micro window (group={group}, gband={gband}, gwidth="
             f"{gwidth}) needs group | chunk={chunk} and a window inside "
             f"the ({band}, {width}) strip")
+    most = (band, window_units(width, isz))
+    slot = most if slot is None else (int(slot[0]), int(slot[1]))
+    if kind != "shared" and not (0 <= slot[0] <= most[0]
+                                 and 0 <= slot[1] <= most[1]):
+        raise ValueError(f"slot {slot} (rows, 16-byte units) must lie "
+                         f"within the window's {most}")
     smem = strip_smem_bytes(kind, P, ty=ty, chunk=chunk, band=band,
                             width=width, itemsize=isz, depth=depth,
-                            group=group)
+                            group=group, slot=slot)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"strip_{kind} needs {smem} B of shared memory per block "
@@ -300,7 +367,8 @@ def launch_strip(volume: torch.Tensor, stack: torch.Tensor,
             None if scales is None else scales.data_ptr(), mats.data_ptr(),
             P, L, nz, int(z0), rows, cols, (int(stack.shape[2]) * isz) // 4,
             n_u, n_v, float(O), float(MM), ty, chunk, band, width, pad_rows,
-            pad_cols, depth, group, gband, gwidth, stream)
+            pad_cols, depth, group, gband, gwidth, slot[0], slot[1],
+            _clamp_counter(volume.device).data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"strip_{kind} kernel launch failed: CUDA error "
                            f"{rc}")

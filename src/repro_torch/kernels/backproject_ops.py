@@ -43,7 +43,7 @@ from .._device import as_f32
 from ..core.backproject import (DEFAULT_PBATCH, GeomStatic, _stream_batches,
                                 strip_wire_dtype)
 from ..core.clipping import (_round8, _round128, shared_window_cover,
-                             strip_needs)
+                             strip_box_slots, strip_needs)
 from ..core.geometry import Geometry
 from .backproject import (WIRE_ITEMSIZE, launch_backproject, launch_strip,
                           pitch_stack)
@@ -337,16 +337,25 @@ def backproject_batch(volume, images, mats, geom: Geometry | GeomStatic, *,
         codes, scales = _split(_on_wire(images, wire))
         stack = pitch_stack(codes) if scales is None \
             else (pitch_stack(codes), scales)
+        # K3/K4: each matrix's largest tap box, so that every launch sizes
+        # its slots by the largest of its own matrices.
+        slots = torch.zeros(len(mats), 2, dtype=torch.int64)
+        if kind != "shared":
+            slots = torch.from_numpy(strip_box_slots(
+                gs, mats, itemsize=WIRE_ITEMSIZE[strip_dtype], **win))
 
-        def launch(vol, st, ms):
+        def launch(vol, part, ms):
+            sl, st = part
             c, s = _split(st)
+            slot = None if kind == "shared" else \
+                tuple(int(n) for n in sl.amax(dim=0))
             return launch_strip(
                 vol, c.contiguous(), ms.contiguous(), kind=kind, z0=z0,
                 O=gs.O, MM=gs.MM, n_u=gs.n_u, n_v=gs.n_v,
-                scales=None if s is None else s.contiguous(), **win,
-                **extra)
+                scales=None if s is None else s.contiguous(), slot=slot,
+                **win, **extra)
 
-        return _stream_batches(stack, mats, volume, pbatch, launch)
+        return _stream_batches((slots, stack), mats, volume, pbatch, launch)
     _cpu_only(volume)
     plain = {"db": backproject_strip_ref, "micro": backproject_micro_ref,
              "shared": backproject_shared_ref}[kind]

@@ -14,8 +14,8 @@
 //
 //     vol[z, y, x] += sum_p bilinear(img_p, ix_p, iy_p) * (1 / w_p)^2,
 //
-// except that a tap reads its value from a window staged in shared
-// memory, and reads 0 when it lies outside that window.  The windows are
+// except that a tap reads its value from shared memory, and reads 0 when
+// it lies outside its window.  The windows are
 // the reference's (repro_torch/kernels/backproject_ref.py, module
 // docstring): per (ty, chunk) voxel tile of one z-plane and per
 // projection a (band, width) strip at the corner-based origin (K3, K4);
@@ -26,15 +26,11 @@
 //
 // Design.  A block owns one tile at a time, one thread per voxel (x
 // fastest), and keeps the voxel in a register while the P projections
-// fold into it.  The stack arrives re-pitched (each row padded to whole
-// 4-byte words, zero-filled), so a window row is a run of words that
-// cp.async copies without crossing a row; words outside the stack are
-// zero-filled.  The staged window keeps the wire's type (float32,
-// bfloat16 or int8 codes); an int8 code decodes in registers with the
-// scale and offset of its global padded row.  The arithmetic is
-// backproject.cu's (backproject_common.cuh), so each kernel equals its
-// plain version bitwise on every wire, and row 1 too where the windows
-// cover every tap.
+// fold into it.  The staged data keeps the wire's type (float32, bfloat16
+// or int8 codes); an int8 code decodes in registers with the scale and
+// offset of its global padded row.  The arithmetic is backproject.cu's
+// (backproject_common.cuh), so each kernel equals its plain version
+// bitwise on every wire, and row 1 too where the windows cover every tap.
 //   K3: persistent blocks walk the global (tile, projection) sequence
 //       t = step * P + p of their tiles through a `depth`-slot ring,
 //       `depth - 1` fetches ahead across tile boundaries (cp.async with
@@ -43,16 +39,38 @@
 //   K4: one tile per block through a 2-slot ring; each run of `group`
 //       lanes finds its micro window with __reduce_min_sync (a group
 //       that does not divide the warp reduces through shared memory).
-//   K5: one (P, band, width) slab per tile, loaded once; all P
-//       projections fold from it.  The slab may exceed 48 KB: the
-//       launcher opts in up to the card's 227 KB and refuses more.
+//   K3 and K4 stage per (tile, projection) item only the box of taps
+//   the tile's voxels read, cut to the item's window and to the image,
+//   not the whole window.  On a z-plane u/w and v/w are linear-
+//   fractional in (x, y), so where w > 0 on the tile (w is affine: at
+//   its four corners) their extremes lie at the four corner voxels: the
+//   box is rows [floor(min iy) + 1, floor(max iy) + 3) and the same for
+//   the columns, widened by kBoxMargin on each side against the float32
+//   rounding of the voxels' own coordinates.  A tile with a corner at
+//   w <= 1e-6 stages its whole window.  Four lanes of each warp evaluate
+//   the four corners and reduce by shuffles, once per item; thread 0
+//   keeps the item (window origin, box) in shared memory beside its
+//   slot.  Rows arrive re-pitched to whole 16-byte units (pitch_stack),
+//   and a box row is staged from the 16-byte unit holding its first
+//   element, one cp.async.cg of 16 bytes per unit, so every copy lies
+//   inside the stack.  A slot holds the largest box of the launch's
+//   matrices (repro_torch/core/clipping.py::strip_box_slots); a box
+//   larger than its slot is cut and counted in `clamps`, which the
+//   caller requires to stay 0.  A tap reads its value only inside the
+//   box (and, in K4, the micro window): the box lies inside the window
+//   and the image, and nothing outside it was staged for this item.
+//   K5: one (P, band, width) slab per tile, loaded once, a 4-byte word
+//       per cp.async; all P projections fold from it.  The slab may
+//       exceed 48 KB: the launcher opts in up to the card's 227 KB and
+//       refuses more.
 //
 // Bound: the same work as backproject.cu, so the same bound (the volume
 // read and written once, each image read once, and the FP32 operations).
-// The staged windows move far more bytes through L2 and shared memory
-// than the direct gather of row 1 reads, so these kernels are expected to
-// be slower than row 1 on this card; they are the ports of the TPU
-// designs, measured beside it.
+// The staged boxes and windows move more bytes through L2 and shared
+// memory than the direct gather of row 1 reads.  With boxes in place of
+// windows K3 and K4 no longer scale with the bytes staged: each item
+// costs two block barriers, the corner box and its copies on top of the
+// fold, so their time goes with the items (tiles x P), as PERF.md shows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,6 +86,11 @@ namespace {
 // Tap coordinates are clamped to +-2^20 before the int conversion: every
 // comparison with a window or the image keeps its outcome.
 constexpr float kTapClamp = 1048576.0f;
+
+// Pixels added on each side of a tile's corner tap box against the
+// float32 rounding of its voxels' own coordinates (the same margin as
+// repro_torch/core/clipping.py::_BOX_MARGIN).
+constexpr int kBoxMargin = 1;
 
 // --------------------------------------------------------------------
 // Wires: how a staged element becomes a float.
@@ -121,6 +144,13 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(src_bytes));
 }
 
+// 16 bytes, L2 only; source and destination 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -156,13 +186,39 @@ struct Geo {
 struct Tiling {
   int ty, chunk, band, width;
   int pad_rows, pad_cols;        // the reference's rounded-up image
-  int sw;                        // staged words per window row
+  int sw;                        // K5: staged words per window row
   int group, gband, gwidth;      // K4 only
+  int slot_rows, slot_units;     // K3, K4: a slot's rows, 16-byte units
 };
+
+// Corner k of a (ty, chunk) tile (bit 0: last column, bit 1: last row):
+// its tap coordinates clipped into the bordered detector, and whether
+// w <= eps there (then 1/w reads 0, as everywhere).
+__device__ __forceinline__ void corner_tap(const float* A, float wz, int y0,
+                                           int x0, int k, const Geo& g,
+                                           const Tiling& t, float& ix,
+                                           float& iy, bool& flat) {
+  const float wy = bp::world(y0 + ((k & 2) ? t.ty - 1 : 0), g.O, g.MM);
+  const float wx = bp::world(x0 + ((k & 1) ? t.chunk - 1 : 0), g.O, g.MM);
+  const float w = bp::dot_row(A + 8, wx, wy, wz);
+  const float r = bp::recip_w(w);
+  flat = !(w > bp::kEpsW);
+  ix = fminf(fmaxf(__fmul_rn(bp::dot_row(A, wx, wy, wz), r), -1.0f),
+             static_cast<float>(g.n_u));
+  iy = fminf(fmaxf(__fmul_rn(bp::dot_row(A + 4, wx, wy, wz), r), -1.0f),
+             static_cast<float>(g.n_v));
+}
 
 // The window origin of a (ty, chunk) tile from its four corner voxels
 // (the reference's _strip_origin): the floor of the least clipped tap
 // coordinate, clamped so the window ends inside the padded image.
+__device__ __forceinline__ int2 window_origin(float rlo, float clo,
+                                              const Tiling& t) {
+  return make_int2(
+      min(max(static_cast<int>(floorf(rlo)), 0), t.pad_rows - t.band),
+      min(max(static_cast<int>(floorf(clo)), 0), t.pad_cols - t.width));
+}
+
 __device__ __forceinline__ int2 corner_origin(const float* A, float wz,
                                               int y0, int x0,
                                               const Geo& g,
@@ -170,22 +226,139 @@ __device__ __forceinline__ int2 corner_origin(const float* A, float wz,
   float rlo = 0.0f, clo = 0.0f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const float wy = bp::world(y0 + ((k & 2) ? t.ty - 1 : 0), g.O, g.MM);
-    const float wx = bp::world(x0 + ((k & 1) ? t.chunk - 1 : 0), g.O, g.MM);
-    const float r = bp::recip_w(bp::dot_row(A + 8, wx, wy, wz));
-    const float ix = fminf(fmaxf(__fmul_rn(bp::dot_row(A, wx, wy, wz), r),
-                                 -1.0f), static_cast<float>(g.n_u));
-    const float iy = fminf(fmaxf(__fmul_rn(bp::dot_row(A + 4, wx, wy, wz),
-                                           r), -1.0f),
-                           static_cast<float>(g.n_v));
+    float ix, iy;
+    bool flat;
+    corner_tap(A, wz, y0, x0, k, g, t, ix, iy, flat);
     clo = k ? fminf(clo, ix) : ix;
     rlo = k ? fminf(rlo, iy) : iy;
   }
-  const int r0 = min(max(static_cast<int>(floorf(rlo)), 0),
-                     t.pad_rows - t.band);
-  const int c0 = min(max(static_cast<int>(floorf(clo)), 0),
-                     t.pad_cols - t.width);
-  return make_int2(r0, c0);
+  return window_origin(rlo, clo, t);
+}
+
+// The extent of the clipped tap coordinates over a tile's four corners.
+struct CornerSpan {
+  float rlo, rhi, clo, chi;
+  bool flat;   // some corner at w <= eps
+};
+
+// Every thread of a warp gets its tile's span.  With `lanes4` (the warp's
+// live lanes, `mask`, come in whole fours) each lane evaluates corner
+// lane & 3 and each four lanes reduce by shuffles; else each thread
+// evaluates all four.  min and max do not depend on the order.
+__device__ __forceinline__ CornerSpan corner_span(const float* A, float wz,
+                                                  int y0, int x0,
+                                                  const Geo& g,
+                                                  const Tiling& t,
+                                                  unsigned mask,
+                                                  bool lanes4) {
+  CornerSpan sp;
+  float ix, iy;
+  bool flat;
+  if (lanes4) {
+    corner_tap(A, wz, y0, x0, threadIdx.x & 3, g, t, ix, iy, flat);
+    sp = CornerSpan{iy, iy, ix, ix, flat};
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      sp.rlo = fminf(sp.rlo, __shfl_xor_sync(mask, sp.rlo, o));
+      sp.rhi = fmaxf(sp.rhi, __shfl_xor_sync(mask, sp.rhi, o));
+      sp.clo = fminf(sp.clo, __shfl_xor_sync(mask, sp.clo, o));
+      sp.chi = fmaxf(sp.chi, __shfl_xor_sync(mask, sp.chi, o));
+      sp.flat = __shfl_xor_sync(mask, static_cast<int>(sp.flat), o) ||
+                sp.flat;
+    }
+    return sp;
+  }
+  for (int k = 0; k < 4; ++k) {
+    corner_tap(A, wz, y0, x0, k, g, t, ix, iy, flat);
+    sp.rlo = k ? fminf(sp.rlo, iy) : iy;
+    sp.rhi = k ? fmaxf(sp.rhi, iy) : iy;
+    sp.clo = k ? fminf(sp.clo, ix) : ix;
+    sp.chi = k ? fmaxf(sp.chi, ix) : ix;
+    sp.flat = k ? (sp.flat || flat) : flat;
+  }
+  return sp;
+}
+
+// One (tile, projection) item of K3/K4: its window origin (r0, c0) and
+// the box it stages, rows [br0, br1) x columns [bc0, bc1) in padded
+// coordinates; a box row is staged as `nu` 16-byte units from unit u0
+// of its image row.  An empty box has br1 = br0, bc1 = bc0, nu = 0.
+struct Item {
+  int r0, c0, br0, br1, bc0, bc1, u0, nu;
+};
+
+// The item of a tile's corner span: its window, and the box of its taps
+// (repro_torch/core/clipping.py::corner_boxes, the same integer rule)
+// cut to the window, the image and the slot.  Returns whether the slot
+// cut it.
+template <int kBytes>
+__device__ __forceinline__ bool make_item(const CornerSpan& sp,
+                                          const Geo& g, const Tiling& t,
+                                          Item& it) {
+  const int2 o = window_origin(sp.rlo, sp.clo, t);
+  it.r0 = o.x;
+  it.c0 = o.y;
+  int br0 = o.x, br1 = o.x + t.band, bc0 = o.y, bc1 = o.y + t.width;
+  if (!sp.flat) {
+    br0 = max(br0, static_cast<int>(floorf(sp.rlo)) + 1 - kBoxMargin);
+    br1 = min(br1, static_cast<int>(floorf(sp.rhi)) + 3 + kBoxMargin);
+    bc0 = max(bc0, static_cast<int>(floorf(sp.clo)) + 1 - kBoxMargin);
+    bc1 = min(bc1, static_cast<int>(floorf(sp.chi)) + 3 + kBoxMargin);
+  }
+  br1 = min(br1, g.rows);
+  bc1 = min(bc1, g.cols);
+  it.u0 = (bc0 * kBytes) >> 4;
+  it.nu = ((bc1 * kBytes + 15) >> 4) - it.u0;
+  if (br1 <= br0 || bc1 <= bc0) {
+    br1 = br0;
+    bc1 = bc0;
+    it.nu = 0;
+  }
+  bool cut = false;
+  if (br1 - br0 > t.slot_rows) {
+    br1 = br0 + t.slot_rows;
+    cut = true;
+  }
+  if (it.nu > t.slot_units) {
+    it.nu = t.slot_units;
+    bc1 = min(bc1, ((it.u0 + it.nu) << 4) / kBytes);
+    cut = true;
+  }
+  it.br0 = br0;
+  it.br1 = br1;
+  it.bc0 = bc0;
+  it.bc1 = bc1;
+  return cut;
+}
+
+// Copy an item's box of projection p into `dst` (rows of t.slot_units
+// 16-byte units), cooperatively, without waiting.  The box lies in the
+// image and its units in the 16-byte pitch, so every copy is whole.
+__device__ __forceinline__ void stage_box(unsigned char* dst,
+                                          const unsigned char* __restrict__ stack,
+                                          int p, const Item& it,
+                                          const Geo& g, const Tiling& t,
+                                          int tid, int nthreads) {
+  const int rows = it.br1 - it.br0;
+  if (rows <= 0 || it.nu <= 0) return;
+  const size_t pitch = static_cast<size_t>(g.pitch_words) * 4;
+  const unsigned char* src =
+      stack + (static_cast<size_t>(p) * g.rows + it.br0) * pitch +
+      static_cast<size_t>(it.u0) * 16;
+  const int row_bytes = t.slot_units * 16;
+  if (it.nu <= nthreads) {
+    // Each thread keeps one unit u and walks rows r, r + step, ...
+    const int step = nthreads / it.nu;
+    const int r0 = tid / it.nu;
+    const int u = tid - r0 * it.nu;
+    if (r0 >= step) return;
+    for (int r = r0; r < rows; r += step)
+      cp_async16(dst + r * row_bytes + u * 16, src + r * pitch + u * 16);
+    return;
+  }
+  for (int r = 0; r < rows; ++r)
+    for (int u = tid; u < it.nu; u += nthreads)
+      cp_async16(dst + r * row_bytes + u * 16, src + r * pitch + u * 16);
 }
 
 // Copy the (band, width) window at (r0, c0) of projection p into `dst`
@@ -211,7 +384,7 @@ __device__ __forceinline__ void stage(uint32_t* dst,
   }
 }
 
-// A staged window: rows [r0, r0 + band) of projection p, each row
+// K5's staged window: rows [r0, r0 + band) of projection p, each row
 // starting at word (c0 * bytes) / 4 of the image row.
 struct Staged {
   const uint32_t* base;
@@ -273,77 +446,132 @@ __device__ __forceinline__ float fold(float acc, const Wire& wire,
   return bp::fold_taps(acc, bl, br, tl, tr, vt.sx, vt.sy, vt.r);
 }
 
+// A staged box (K3, K4): row br0 at `base`, rows `row_bytes` apart, the
+// row's first staged byte at byte `off` of its image row.
+struct BoxView {
+  const unsigned char* base;
+  int br0, off, row_bytes;
+};
+
+// Taps (rq, cq) and (rq, cq + 1) of projection p from a staged box: 0
+// outside [rlo, rhi) x [clo, chi), which lies inside the box.
+template <class Wire>
+__device__ __forceinline__ void tap_box(const Wire& wire, const BoxView& s,
+                                        int p, int rq, int cq, int rlo,
+                                        int rhi, int clo, int chi, float& a,
+                                        float& b) {
+  a = b = 0.0f;
+  if (rq < rlo || rq >= rhi) return;
+  const float2 so = wire.row_affine(p, rq);
+  const unsigned char* row = s.base + (rq - s.br0) * s.row_bytes;
+  const int at = cq * Wire::kBytes - s.off;
+  if (cq >= clo && cq < chi) a = wire.decode(row + at, so);
+  if (cq + 1 >= clo && cq + 1 < chi)
+    b = wire.decode(row + at + Wire::kBytes, so);
+}
+
+template <class Wire>
+__device__ __forceinline__ float fold_box(float acc, const Wire& wire,
+                                          const BoxView& s, int p,
+                                          const VoxelTap& vt, int rlo,
+                                          int rhi, int clo, int chi) {
+  float bl, br, tl, tr;
+  tap_box(wire, s, p, vt.rr, vt.c, rlo, rhi, clo, chi, bl, br);
+  tap_box(wire, s, p, vt.rr + 1, vt.c, rlo, rhi, clo, chi, tl, tr);
+  return bp::fold_taps(acc, bl, br, tl, tr, vt.sx, vt.sy, vt.r);
+}
+
 __host__ __device__ __forceinline__ int mats_bytes(int P) {
   return (P * 12 * 4 + 15) / 16 * 16;
 }
 
 // --------------------------------------------------------------------
-// K3 strip_db and K4 strip_micro: a ring of strips per block.
+// K3 strip_db and K4 strip_micro: a ring of tap boxes per block.
 // --------------------------------------------------------------------
 template <class Wire, bool kMicro>
 __global__ void __launch_bounds__(1024)
     strip_ring_kernel(float* __restrict__ vol,
-                      const uint32_t* __restrict__ stack,
+                      const unsigned char* __restrict__ stack,
                       const float* __restrict__ mats, Wire wire, int P,
                       Geo g, Tiling t, int depth, int n_tiles,
-                      int warp_groups) {
+                      int warp_groups, int* __restrict__ clamps) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* smats = reinterpret_cast<float*>(smem);
-  uint32_t* ring = reinterpret_cast<uint32_t*>(smem + mats_bytes(P));
-  const int slot_words = t.band * t.sw;
-  int* red = reinterpret_cast<int*>(ring + depth * slot_words);
+  Item* items = reinterpret_cast<Item*>(smem + mats_bytes(P));
+  unsigned char* ring = reinterpret_cast<unsigned char*>(items + depth);
+  const int slot_bytes = t.slot_rows * t.slot_units * 16;
+  int* red = reinterpret_cast<int*>(ring + depth * slot_bytes);
 
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   for (int i = tid; i < P * 12; i += nthreads) smats[i] = mats[i];
   __syncthreads();
 
+  const int live = min(32, nthreads - (tid & ~31));
+  const unsigned live_mask = live == 32 ? 0xffffffffu : (1u << live) - 1u;
+  const bool lanes4 = (live & 3) == 0;
   const int ly = tid / t.chunk;
   const int lx = tid - ly * t.chunk;
   const int tiles_y = g.L / t.ty;
   const int tiles_x = g.L / t.chunk;
-  const int my_tiles = (n_tiles - 1 - static_cast<int>(blockIdx.x)) /
-                           static_cast<int>(gridDim.x) + 1;
-  const long long total = static_cast<long long>(my_tiles) * P;
 
-  // Item s of this block: projection s % P of its (s / P)-th tile.
-  auto tile_of = [&](long long s, int& zi, int& y0, int& x0) {
-    const int tile = static_cast<int>(blockIdx.x) +
-                     static_cast<int>(s / P) * static_cast<int>(gridDim.x);
-    const int tx = tile % tiles_x;
-    const int rest = tile / tiles_x;
-    y0 = (rest % tiles_y) * t.ty;
-    x0 = tx * t.chunk;
-    zi = rest / tiles_y;
+  // A walk over this block's items: projection p of its tiles blockIdx.x,
+  // blockIdx.x + gridDim.x, ... in turn, in ring slot `slot`.  Advanced
+  // by counting, so an item costs no integer division.
+  struct Cursor {
+    int tile, p, slot, zi, y0, x0;
   };
-  auto fetch = [&](long long s) {
-    if (s < total) {
-      int zi, y0, x0;
-      tile_of(s, zi, y0, x0);
-      const int p = static_cast<int>(s % P);
-      const int2 o = corner_origin(smats + p * 12,
-                                   bp::world(g.z0 + zi, g.O, g.MM), y0, x0,
-                                   g, t);
-      stage<Wire>(ring + (s % depth) * slot_words, stack, p, o.x, o.y, g,
-                  t, tid, nthreads);
+  auto place = [&](Cursor& c) {
+    const int rest = c.tile / tiles_x;
+    c.x0 = (c.tile - rest * tiles_x) * t.chunk;
+    c.zi = rest / tiles_y;
+    c.y0 = (rest - c.zi * tiles_y) * t.ty;
+  };
+  auto advance = [&](Cursor& c) {
+    c.slot = c.slot + 1 == depth ? 0 : c.slot + 1;
+    if (++c.p == P) {
+      c.p = 0;
+      c.tile += gridDim.x;
+      place(c);
+    }
+  };
+  Cursor next{static_cast<int>(blockIdx.x), 0, 0, 0, 0, 0};
+  place(next);
+  Cursor cur = next;
+
+  // Stage the item at `next` and step past it.  Every item commits one
+  // cp.async group, an empty box too, and so does every fetch past the
+  // last item, so that wait_group counts items.
+  auto fetch = [&]() {
+    if (next.tile < n_tiles) {
+      const CornerSpan sp = corner_span(
+          smats + next.p * 12, bp::world(g.z0 + next.zi, g.O, g.MM),
+          next.y0, next.x0, g, t, live_mask, lanes4);
+      Item it;
+      const bool cut = make_item<Wire::kBytes>(sp, g, t, it);
+      if (tid == 0) {
+        items[next.slot] = it;
+        if (cut) atomicAdd(clamps, 1);
+      }
+      stage_box(ring + next.slot * slot_bytes, stack, next.p, it, g, t, tid,
+                nthreads);
+      advance(next);
     }
     cp_async_commit();
   };
 
-  for (int d = 0; d < depth - 1; ++d) fetch(d);
+  for (int d = 0; d < depth - 1; ++d) fetch();
   float acc = 0.0f;
   size_t vidx = 0;
-  for (long long s = 0; s < total; ++s) {
-    __syncthreads();                 // slot (s - 1) % depth is free again
-    fetch(s + depth - 1);
-    cp_async_wait_dyn(depth - 1);    // item s has landed (this thread's)
+  for (; cur.tile < n_tiles; advance(cur)) {
+    __syncthreads();                 // the previous item's slot is free
+    fetch();                         // depth - 1 items ahead
+    cp_async_wait_dyn(depth - 1);    // this item has landed (this thread's)
     __syncthreads();                 // ... and every thread's
 
-    int zi, y0, x0;
-    tile_of(s, zi, y0, x0);
-    const int p = static_cast<int>(s % P);
-    const int y = y0 + ly;
-    const int x = x0 + lx;
+    const int p = cur.p, slot = cur.slot, zi = cur.zi;
+    const int y = cur.y0 + ly;
+    const int x = cur.x0 + lx;
     if (p == 0) {
       vidx = (static_cast<size_t>(zi) * g.L + y) * g.L + x;
       acc = vol[vidx];
@@ -352,14 +580,14 @@ __global__ void __launch_bounds__(1024)
     const float wz = bp::world(g.z0 + zi, g.O, g.MM);
     const VoxelTap vt = voxel_tap(A, bp::world(x, g.O, g.MM),
                                   bp::world(y, g.O, g.MM), wz);
-    const int2 o = corner_origin(A, wz, y0, x0, g, t);
-    int rlo = o.x, rhi = o.x + t.band, clo = o.y, chi = o.y + t.width;
+    const Item it = items[slot];
+    int rlo = it.br0, rhi = it.br1, clo = it.bc0, chi = it.bc1;
     if (kMicro) {
       // The run's micro window: the least strip-relative tap row and
       // column, each clipped into the strip, the origin clipped so the
-      // window stays in the strip.
-      int rel_r = min(max(vt.rr - o.x, 0), t.band - 1);
-      int rel_c = min(max(vt.c - o.y, 0), t.width - 1);
+      // window stays in the strip; taps read inside it and the box.
+      int rel_r = min(max(vt.rr - it.r0, 0), t.band - 1);
+      int rel_c = min(max(vt.c - it.c0, 0), t.width - 1);
       if (warp_groups) {
         const int lane = tid & 31;
         const unsigned mask =
@@ -377,14 +605,16 @@ __global__ void __launch_bounds__(1024)
           rel_c = min(rel_c, red[nthreads + first + j]);
         }
       }
-      rlo = o.x + min(max(rel_r, 0), t.band - t.gband);
-      clo = o.y + min(max(rel_c, 0), t.width - t.gwidth);
-      rhi = rlo + t.gband;
-      chi = clo + t.gwidth;
+      const int gr = it.r0 + min(max(rel_r, 0), t.band - t.gband);
+      const int gc = it.c0 + min(max(rel_c, 0), t.width - t.gwidth);
+      rlo = max(rlo, gr);
+      rhi = min(rhi, gr + t.gband);
+      clo = max(clo, gc);
+      chi = min(chi, gc + t.gwidth);
     }
-    const Staged st{ring + (s % depth) * slot_words, o.x,
-                    (o.y * Wire::kBytes) >> 2};
-    acc = fold(acc, wire, st, g, t, p, vt, rlo, rhi, clo, chi);
+    const BoxView bv{ring + slot * slot_bytes, it.br0, it.u0 * 16,
+                     t.slot_units * 16};
+    acc = fold_box(acc, wire, bv, p, vt, rlo, rhi, clo, chi);
     if (p == P - 1) vol[vidx] = acc;
   }
 }
@@ -450,28 +680,32 @@ __global__ void __launch_bounds__(1024)
 // --------------------------------------------------------------------
 enum Kind { kDb = 0, kMicroKind = 1, kShared = 2 };
 
-// Dynamic shared memory of one block: the P x 12 matrices, the staged
-// windows (depth slots, or the P-deep slab) and K4's reduction scratch.
+// Dynamic shared memory of one block: the P x 12 matrices, then K5's
+// P-deep window slab, or K3/K4's `depth` items and slots (each slot
+// slot_rows x slot_units 16-byte units) and K4's reduction scratch.
 // Mirrors repro_torch/kernels/backproject.py::strip_smem_bytes.
 size_t smem_bytes(int kind, int P, const Tiling& t, int depth,
                   int warp_groups) {
-  const size_t slots = kind == kShared ? P : depth;
-  size_t n = mats_bytes(P) + slots * t.band * t.sw * 4;
+  if (kind == kShared)
+    return mats_bytes(P) + static_cast<size_t>(P) * t.band * t.sw * 4;
+  size_t n = mats_bytes(P) + depth * (sizeof(Item) +
+                                      static_cast<size_t>(t.slot_rows) *
+                                          t.slot_units * 16);
   if (kind == kMicroKind && !warp_groups)
     n += static_cast<size_t>(2) * t.ty * t.chunk * 4;
   return n;
 }
 
 template <class Wire>
-int launch(int kind, float* vol, const uint32_t* stack, const float* mats,
+int launch(int kind, float* vol, const void* stack, const float* mats,
            const Wire& wire, int P, int nz, const Geo& g, const Tiling& t,
-           int depth, cudaStream_t stream) {
+           int depth, int* clamps, cudaStream_t stream) {
   const int threads = t.ty * t.chunk;
   const int n_tiles = nz * (g.L / t.ty) * (g.L / t.chunk);
   const int warp_groups = kind == kMicroKind && 32 % t.group == 0;
   const size_t smem = smem_bytes(kind, P, t, depth, warp_groups);
-  void (*ring)(float*, const uint32_t*, const float*, Wire, int, Geo,
-               Tiling, int, int, int) =
+  void (*ring)(float*, const unsigned char*, const float*, Wire, int, Geo,
+               Tiling, int, int, int, int*) =
       kind == kDb ? strip_ring_kernel<Wire, false>
                   : strip_ring_kernel<Wire, true>;
   const void* fn = kind == kShared
@@ -484,7 +718,7 @@ int launch(int kind, float* vol, const uint32_t* stack, const float* mats,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (kind == kShared) {
     strip_shared_kernel<Wire><<<n_tiles, threads, smem, stream>>>(
-        vol, stack, mats, wire, P, g, t);
+        vol, static_cast<const uint32_t*>(stack), mats, wire, P, g, t);
     return static_cast<int>(cudaGetLastError());
   }
   int blocks = n_tiles;            // K4: one tile per block
@@ -499,8 +733,9 @@ int launch(int kind, float* vol, const uint32_t* stack, const float* mats,
     if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     blocks = std::min(n_tiles, per_sm * sms);
   }
-  ring<<<blocks, threads, smem, stream>>>(vol, stack, mats, wire, P, g, t,
-                                         depth, n_tiles, warp_groups);
+  ring<<<blocks, threads, smem, stream>>>(
+      vol, static_cast<const unsigned char*>(stack), mats, wire, P, g, t,
+      depth, n_tiles, warp_groups, clamps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -511,9 +746,15 @@ int launch(int kind, float* vol, const uint32_t* stack, const float* mats,
 //   wire:  4 float32, 2 bfloat16, 1 int8 (the element size in bytes);
 //   vol:   (nz, L, L) f32, its first plane the global plane z0;
 //   stack: (P, rows, pitch_words) 32-bit words: the bordered images in
-//          the wire's type, each row zero-padded to whole words;
+//          the wire's type, each row zero-padded to whole 16-byte units
+//          (K5 takes whole words), 16-byte aligned;
 //   scales (int8 only): (P, 2, rows) f32, [p][0] scale, [p][1] offset;
-//   mats:  (P, 3, 4) f32.
+//   mats:  (P, 3, 4) f32;
+//   slot_rows, slot_units (K3, K4): a slot's rows and 16-byte units per
+//          row, at most the window's (band rows, (width * wire + 15) / 16
+//          + 1 units);
+//   clamps (K3, K4): one int on the device, += 1 for every item whose
+//          box its slot cut.
 // Every pointer on the device of `stream`.  Launches on `stream`,
 // neither synchronises nor allocates, and returns a cudaError_t value
 // (cudaErrorInvalidValue for a shape the kernels do not take).
@@ -522,33 +763,40 @@ extern "C" int backproject_strip_launch(
     const void* mats, int P, int L, int nz, int z0, int rows, int cols,
     int pitch_words, int n_u, int n_v, float O, float MM, int ty, int chunk,
     int band, int width, int pad_rows, int pad_cols, int depth, int group,
-    int gband, int gwidth, void* stream) {
+    int gband, int gwidth, int slot_rows, int slot_units, void* clamps,
+    void* stream) {
+  const bool ring = kind == kDb || kind == kMicroKind;
   if (P < 1 || ty < 1 || chunk < 1 || L % ty || L % chunk ||
       ty * chunk > 1024 || band < 1 || width < 1 || depth < 2 || depth > 8 ||
       pad_rows < band || pad_cols < width ||
       (kind == kMicroKind &&
        (group < 1 || chunk % group || gband > band || gwidth > width ||
         gband < 1 || gwidth < 1)) ||
+      (ring && (pitch_words % 4 || reinterpret_cast<uintptr_t>(stack) % 16 ||
+                slot_rows < 0 || slot_rows > band || slot_units < 0 ||
+                slot_units > (width * wire + 15) / 16 + 1 ||
+                clamps == nullptr)) ||
       kind < kDb || kind > kShared)
     return static_cast<int>(cudaErrorInvalidValue);
   if (nz == 0) return 0;
   const int sw = (width * wire + 3) / 4 + 1;
   const Geo g{O, MM, L, z0, n_u, n_v, rows, cols, pitch_words};
   const Tiling t{ty, chunk, band, width, pad_rows, pad_cols, sw,
-                 group, gband, gwidth};
+                 group, gband, gwidth, slot_rows, slot_units};
   auto* v = static_cast<float*>(vol);
-  auto* s = static_cast<const uint32_t*>(stack);
   auto* m = static_cast<const float*>(mats);
+  auto* c = static_cast<int*>(clamps);
   auto st = static_cast<cudaStream_t>(stream);
   switch (wire) {
     case 4:
-      return launch(kind, v, s, m, F32Wire{}, P, nz, g, t, depth, st);
+      return launch(kind, v, stack, m, F32Wire{}, P, nz, g, t, depth, c, st);
     case 2:
-      return launch(kind, v, s, m, Bf16Wire{}, P, nz, g, t, depth, st);
+      return launch(kind, v, stack, m, Bf16Wire{}, P, nz, g, t, depth, c,
+                    st);
     case 1:
-      return launch(kind, v, s, m,
+      return launch(kind, v, stack, m,
                     Int8Wire{static_cast<const float*>(scales), rows}, P,
-                    nz, g, t, depth, st);
+                    nz, g, t, depth, c, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -164,6 +164,90 @@ def test_strip_kernels_at_one_projection(dev):
     assert LAUNCHES["strip_db_p1"] == LAUNCHES["strip_micro_p1"] == 1
 
 
+_G32 = Geometry().scaled(32, n_proj=8)
+
+
+def _box_case(dev):
+    """L = 32, 8 views, one of them a matrix whose w vanishes on the
+    plane x = 0 (tiles there have corners at w <= eps and stage their
+    whole window)."""
+    mats = projection_matrices(_G32)
+    mats[5, 2] = [1.0, 0.0, 0.0, 0.0]
+    rng = np.random.default_rng(21)
+    imgs = torch.tensor(rng.standard_normal(
+        (8, _G32.n_v, _G32.n_u)).astype(np.float32), device=dev)
+    vol = torch.tensor(rng.standard_normal((32,) * 3).astype(np.float32),
+                       device=dev)
+    return imgs, torch.tensor(mats, device=dev), vol
+
+
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("flags,key", [
+    (dict(double_buffer=True, db_depth=2), "strip_db"),
+    (dict(double_buffer=True, db_depth=4), "strip_db"),
+    (dict(micro=True), "strip_micro"),
+])
+def test_strip_boxes_equal_plain_at_each_batch(dev, wire, flags, key):
+    """K3 (depth 2 and 4) and K4 stage each tile's tap box cut from a
+    window wider than the planner's (so the cut matters): bitwise equal
+    to their plain versions at P = 1, 4 and 8 on three tiles (the last
+    too narrow for a warp's lanes to share the corners), one launch per
+    batch, and no box cut by its slot."""
+    from repro_torch.core import clipping
+    from repro_torch.kernels import backproject_ops as ops
+    from repro_torch.kernels.backproject import (reset_strip_clamped,
+                                                 strip_clamped)
+
+    imgs, mats, vol = _box_case(dev)
+    suffix = {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}[wire]
+    reset_strip_clamped()
+    for ty, chunk in ((1, 16), (8, 8), (1, 2)):
+        nb, nw = clipping.strip_needs(_G32, mats.cpu(), chunk=chunk,
+                                      ty=ty).max(axis=0)
+        kw = dict(ty=ty, chunk=chunk, band=int(nb) + 8,
+                  width=int(nw) + 32, strip_dtype=wire, **flags)
+        if "micro" in flags:
+            group = min(8, chunk)
+            gb, gw = clipping.strip_needs(_G32, mats.cpu(),
+                                          chunk=group).max(axis=0)
+            kw.update(micro_group=group, micro_band=int(gb) + 2,
+                      micro_width=int(gw) + 4)
+        for P in (1, 4, 8):
+            for k in LAUNCHES:
+                LAUNCHES[k] = 0
+            got = ops.backproject_batch(vol.clone(), imgs[:P], mats[:P],
+                                        _G32, pbatch=P, **kw)
+            torch.cuda.synchronize()
+            assert LAUNCHES[key + suffix + ("_p1" if P == 1 else "")] == 1
+            want = ops.backproject_batch(vol.cpu(), imgs[:P].cpu(),
+                                         mats[:P].cpu(), _G32, pbatch=P,
+                                         **kw)
+            assert torch.equal(got.cpu(), want), (ty, chunk, P)
+    assert strip_clamped(dev) == 0
+
+
+def test_strip_clamp_counter_counts_cut_boxes(dev):
+    """A slot smaller than the launch's boxes cuts them: each cut item
+    is counted (the launcher takes any slot within the window)."""
+    from repro_torch.kernels.backproject import (launch_strip, pitch_stack,
+                                                 reset_strip_clamped,
+                                                 strip_clamped)
+    from repro_torch.kernels.backproject_ref import padded_dims
+
+    imgs, mats, vol = _box_case(dev)
+    gs = GeomStatic.of(_G32)
+    stack = pitch_stack(torch.nn.functional.pad(imgs[:2], (1, 1, 1, 1)))
+    win = dict(ty=1, chunk=16, band=16, width=128)
+    pr, pc = padded_dims(gs, 16, 128, 4)
+    reset_strip_clamped()
+    launch_strip(vol.clone(), stack, mats[:2].contiguous(), kind="db",
+                 z0=0, O=gs.O, MM=gs.MM, n_u=gs.n_u, n_v=gs.n_v,
+                 pad_rows=pr, pad_cols=pc, slot=(1, 1), **win)
+    assert strip_clamped(dev) > 0
+    reset_strip_clamped()
+    assert strip_clamped(dev) == 0
+
+
 def test_planner_on_the_card_equals_the_host(dev):
     from repro_torch.core import clipping
 

@@ -153,13 +153,14 @@ def test_strip_launcher_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="unknown strip kernel"):
         launch_strip(vol, stack, torch.zeros(1, 3, 4), **dict(kw,
                                                               kind="ring"))
-    # A row of 1-byte codes is padded with zeros to whole 4-byte words.
+    # A row of 1-byte codes is padded with zeros to whole 16-byte units.
     codes = torch.ones(2, 3, 5, dtype=torch.int8)
     pitched = pitch_stack(codes)
-    assert pitched.shape == (2, 3, 8) and torch.equal(pitched[..., :5],
-                                                      codes)
+    assert pitched.shape == (2, 3, 16) and torch.equal(pitched[..., :5],
+                                                       codes)
     assert not pitched[..., 5:].any()
-    assert pitch_stack(stack) is stack
+    whole = torch.zeros(1, G.n_v + 2, 44)
+    assert pitch_stack(whole) is whole
 
 
 def test_lm_launchers_refuse_host_tensors():

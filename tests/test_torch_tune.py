@@ -369,8 +369,10 @@ def test_shared_memory_screen_and_time_fn():
                                   "ty": 8, "chunk": 16, "band": 16,
                                   "width": 128, "pbatch": 4,
                                   "strip_dtype": "int8"})
-    assert f32 == 4 * 48 + 3 * 16 * (128 + 1) * 4
-    assert int8 == 4 * 48 + 3 * 16 * (32 + 1) * 4
+    # Per slot a 32-byte item record and the window's worst-case box:
+    # 16 rows of (bytes / 16 + 1) 16-byte units.
+    assert f32 == 4 * 48 + 3 * (32 + 16 * (512 // 16 + 1) * 16)
+    assert int8 == 4 * 48 + 3 * (32 + 16 * (128 // 16 + 1) * 16)
     assert kernel_smem_bytes(GS, {"ty": 8}) == 0
     assert not pallas_batch_fits_smem(pbatch=8, ty=8, chunk=32,
                                       band=64, width=512, depth=8)
