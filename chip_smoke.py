@@ -82,10 +82,11 @@ N_VALIDATE = 4            # matrices put through the host window check
 # The reference tuner's base tile (ty, chunk), at which the planner is
 # timed over all matrices.  The strip kernels run at the first of
 # STRIP_TILES whose windows, sized by the planner over all matrices, fit
-# a block (K3's 4-deep float32 ring, K5's slab of N_CHECK float32 views
-# and of every PBATCH group of the scan).  One-line tiles: the planner
-# merges the strip origins of a tile's lines, inactive lines included,
-# so at L = 512 an 8-line tile needs a strip as wide as the detector.
+# a block (K3's 4-deep float32 ring of windows, K5's float32 boxes of
+# N_CHECK views and of every PBATCH group of the scan).  One-line
+# tiles: the planner merges the strip origins of a tile's lines,
+# inactive lines included, so at L = 512 an 8-line tile needs a strip as
+# wide as the detector.
 STRIP_TILE = (8, 32)
 STRIP_TILES = ((1, 128), (1, 64), (1, 32))
 # (LAUNCHES key, TPU kernel replaced, wrapper keywords) of each strip
@@ -648,15 +649,16 @@ def strip_problem(geom, dev, rng):
 
 
 def strip_tiling(geom, dev, mats):
-    """The strip kernels' tile (the first of STRIP_TILES whose windows fit
-    a block) and their strip there: every matrix's need, rounded up to 8
-    rows and 32 columns."""
+    """The strip kernels' tile (the first of STRIP_TILES whose K3 ring of
+    windows, and K5's boxes, fit a block) and their strip there: every
+    matrix's need, rounded up to 8 rows and 32 columns."""
     from repro_torch.core import clipping
     from repro_torch.core.backproject import GeomStatic
     from repro_torch.core.geometry import projection_matrices
     from repro_torch.kernels.backproject import SMEM_LIMIT, strip_smem_bytes
     from repro_torch.kernels.backproject_ops import (clamp_tiles,
                                                      shared_window_dims)
+    from repro_torch.kernels.backproject_ref import padded_dims
 
     gs = GeomStatic.of(geom)
     all_mats = projection_matrices(geom)
@@ -666,19 +668,27 @@ def strip_tiling(geom, dev, mats):
         nb, nw = clipping.strip_needs(geom, all_mats, chunk=chunk, ty=ty,
                                       device=dev).max(axis=0)
         band, width = int(-(-nb // 8) * 8), int(-(-nw // 32) * 32)
-        sizes = [strip_smem_bytes("db", PBATCH, ty=ty, chunk=chunk,
-                                  band=band, width=width, itemsize=4,
-                                  depth=4)]
+        k3 = strip_smem_bytes("db", PBATCH, ty=ty, chunk=chunk, band=band,
+                              width=width, itemsize=4, depth=4)
+        msg = (f"  tile ({ty}, {chunk}): strip ({band}, {width}); shared "
+               f"memory per block: K3 depth 4 {k3} B")
+        if k3 > SMEM_LIMIT:
+            print(f"{msg} (of {SMEM_LIMIT})")
+            continue
+        sizes = [k3]
         for group, P in ((mats, len(mats)), (all_mats, PBATCH)):
             b, w = shared_window_dims(geom, group, ty=ty, chunk=chunk,
                                       pbatch=P, device=dev)
             _, _, b, w = clamp_tiles(gs, ty, chunk, b, w)
+            pr, pc = padded_dims(gs, b, w, 4)
+            slot = int(clipping.shared_box_slots(
+                gs, group, ty=ty, chunk=chunk, band=b, width=w, pad_rows=pr,
+                pad_cols=pc, itemsize=4, pbatch=P, device=dev).max())
             sizes.append(strip_smem_bytes("shared", P, ty=ty, chunk=chunk,
-                                          band=b, width=w, itemsize=4))
-        print(f"  tile ({ty}, {chunk}): strip ({band}, {width}); shared "
-              f"memory per block: K3 depth 4 {sizes[0]} B, K5 slab of "
-              f"{len(mats)} views {sizes[1]} B, of every {PBATCH}-view "
-              f"group {sizes[2]} B (of {SMEM_LIMIT})")
+                                          band=b, width=w, itemsize=4,
+                                          slot=slot))
+        print(f"{msg}, K5 boxes of {len(mats)} views {sizes[1]} B, of "
+              f"every {PBATCH}-view group {sizes[2]} B (of {SMEM_LIMIT})")
         if max(sizes) <= SMEM_LIMIT:
             return (ty, chunk), (band, width)
     fail("no strip tile's windows fit a block")
@@ -737,9 +747,10 @@ def check_strip(geom, problem, tile, window, variants=STRIP_VARIANTS):
     L = 512 on each wire at P = 1, 4 and 8, each through the wrapper
     (which checks every window with the planner first) against its plain
     version on the same wire stack, max |d| = 0, and on float32 against
-    row 1 too; the bytes K3/K4 stage per voxel and projection, their
-    slots, and the count of boxes a slot cut, which must be 0; then each
-    kernel's time per launch, and its plain version's."""
+    row 1 too; the bytes K3/K4 stage per voxel and projection, each
+    launch's slot (K5: its tiles' packed boxes) and bytes per block, and
+    the count of boxes a slot cut, which must be 0; then each kernel's
+    time per launch, and its plain version's."""
     import repro_torch.kernels.backproject_ref as R
     from repro_torch.core import clipping
     from repro_torch.core.backproject import GeomStatic
@@ -792,14 +803,17 @@ def check_strip(geom, problem, tile, window, variants=STRIP_VARIANTS):
                 pr, pc = R.padded_dims(gs, b, w, WIRE_BYTES[wire])
                 win = dict(ty=ty, chunk=chunk, band=b, width=w,
                            pad_rows=pr, pad_cols=pc)
-                extra, slot = {}, None
+                extra = {}
                 if kind == "db":
                     extra = {"depth": flags["db_depth"]}
                 elif kind == "micro":
                     extra = {"group": flags["micro_group"],
                              "gband": flags["micro_band"],
                              "gwidth": flags["micro_width"]}
-                if kind != "shared":
+                if kind == "shared":
+                    slot = int(clipping.shared_box_slots(
+                        gs, mats[:P], itemsize=WIRE_BYTES[wire], **win)[0])
+                else:
                     slot = tuple(int(n) for n in clipping.strip_box_slots(
                         gs, mats[:P], itemsize=WIRE_BYTES[wire],
                         **win).max(axis=0))
@@ -849,10 +863,11 @@ def check_strip(geom, problem, tile, window, variants=STRIP_VARIANTS):
                 del work
                 clamped = strip_clamped(dev)
                 bms, by = bound_ms(L, L, P, rows, cols, wire)
-                print(f"  {label} {wire} P={P} (band {b}, width {w}"
-                      + ("" if slot is None else
-                         f"; slot {slot[0]} x {slot[1] * 16} B, "
-                         f"{smem} B per block, {clamped} boxes cut")
+                print(f"  {label} {wire} P={P} (band {b}, width {w}; "
+                      + (f"slot of packed boxes {slot * 16} B"
+                         if kind == "shared" else
+                         f"slot {slot[0]} x {slot[1] * 16} B")
+                      + f", {smem} B per block, {clamped} boxes cut"
                       + f"): max|d| vs plain {err:.1e}"
                       + ("" if err1 is None else
                          f", vs row 1 {err1:.1e}")
@@ -1057,17 +1072,18 @@ def serve_tuned(geom, dev, mats, filt, v32, tile, window):
         top = float(v32.abs().max())
         err = float((v - v32).abs().max())
         print(f"  {key} (P={P}): {n} launches, {wall:.2f} s for "
-              f"{geom.n_proj} views, {clamped} boxes cut; vs the served "
-              f"float32 volume max|d| {err:.3e} (bound "
-              f"{TOL_STREAM * top:.3e})")
+              f"{geom.n_proj} views ({1e3 * wall / max(n, 1):.3f} ms per "
+              f"launch), {clamped} boxes cut; vs the served float32 volume "
+              f"max|d| {err:.3e} (bound {TOL_STREAM * top:.3e})")
         if clamped:
             fail(f"{key}: {clamped} boxes cut by their slot")
         if n != -(-geom.n_proj // P) or sum(LAUNCHES.values()) != n:
             fail(f"{key}: {dict(LAUNCHES)} launches for one scan at P={P}")
         if not err <= TOL_STREAM * top:
             fail(f"{key}: the scan disagrees with the served volume")
-        out[key] = {"launches": n, "wall_s": wall, "err": err, "P": P,
-                    "clamped": clamped}
+        out[key] = {"launches": n, "wall_s": wall,
+                    "ms_per_launch": 1e3 * wall / max(n, 1), "err": err,
+                    "P": P, "clamped": clamped}
         del v
     torch.cuda.empty_cache()
     return out
@@ -1473,7 +1489,14 @@ def run_lm(cfg, dev, card: str) -> list:
           "max_abs_err": max(v["err"] for v in gat.values()),
           "ms": g4["ms"], "plain_ms": g4["plain_ms"],
           "bound_ms": g4["bound_ms"], "bound_by": g4["bound_by"],
-          "library_ms": g4["library_ms"]},
+          "library_ms": g4["library_ms"],
+          f"retime_N{GATHER_RETIME_N}": {
+              d: {"kernel_ms": r["retime"]["kernel"]["median_ms"],
+                  "library_ms": r["retime"]["F.embedding"]["median_ms"],
+                  "gap_ms": r["retime"]["gap_ms"],
+                  "spread_ms": r["retime"]["spread_ms"],
+                  "bound_ms": r["bound_ms"]}
+              for (d, n), r in gat.items() if n == GATHER_RETIME_N}},
          {"name": "slstm", "route": "cuda", "source": src + "slstm.cu",
           "replaces": "src/repro/kernels/slstm.py:34",
           "launches": lm["runs"]["take"]["launches"].get("slstm", 0),
@@ -1591,11 +1614,9 @@ def run(geom, dev, card: str, build_s: float) -> dict:
     print(f"  tile {tile}, strip {window} (every matrix's need)")
     strip = check_strip(geom, sproblem, tile, window)
     base = base_window(geom, dev)
-    print(f"  K3 and K4 at the reference's base tile {STRIP_TILE}, "
-          f"the planner's window {base}")
-    strip_base = check_strip(geom, sproblem, STRIP_TILE, base,
-                             [v for v in STRIP_VARIANTS
-                              if v[0] != "strip_shared"])
+    print(f"  K3, K4 and K5 at the reference's base tile {STRIP_TILE}, "
+          f"the planner's window {base} (K5: its own)")
+    strip_base = check_strip(geom, sproblem, STRIP_TILE, base)
     del sproblem
     torch.cuda.empty_cache()
 
@@ -1653,7 +1674,9 @@ def run(geom, dev, card: str, build_s: float) -> dict:
                                      if key[0] in labels),
                   "ms": r["ms"], "plain_ms": r["plain_ms"],
                   "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                  "library_ms": None})
+                  "library_ms": None,
+                  "base_tile_ms": strip_base[(label, "float32", P)]["ms"],
+                  "scan_ms_per_launch": tuned[name]["ms_per_launch"]})
     k.append({"name": "quantize_rows", "route": "cuda",
               "source": src + "quant.cu", "replaces": "src/repro/quant.py:95",
               "launches": w["launches"]["quantize_rows"],

@@ -60,6 +60,7 @@ __all__ = [
     "corner_boxes",
     "box_slot_dims",
     "strip_box_slots",
+    "shared_box_slots",
 ]
 
 # Margin (pixels) added around the analytic tap bounds: one for the floor()
@@ -545,16 +546,18 @@ def corner_lows(geom, A: torch.Tensor, ty: int, chunk: int, zs=None):
 _BOX_MARGIN = 1
 
 # (geometry, tile, window, padded image, itemsize, matrix bytes) ->
-# (rows, units) of the largest staged box.
+# (rows, units) of the largest staged box (K3/K4); ("group", the same,
+# the group's matrix bytes) -> units of its largest tile's boxes (K5).
 _BOXES: dict = {}
 
 
 def corner_boxes(geom, A: torch.Tensor, *, ty: int, chunk: int, band: int,
-                 width: int, pad_rows: int, pad_cols: int, zs=None):
-    """The box of taps the strip kernels K3 and K4 stage for every
-    ``(ty, chunk)`` tile of each matrix of ``A`` (``(n, 3, 4)``), in
-    padded image coordinates: rows ``[r0, r1)`` and columns ``[c0,
-    c1)``, each int64 ``(n, len(zs), L / ty, L / chunk)``.
+                 width: int, pad_rows: int, pad_cols: int, zs=None,
+                 group: int = 1):
+    """The box of taps the strip kernels stage for every ``(ty, chunk)``
+    tile of each matrix of ``A`` (``(n, 3, 4)``), in padded image
+    coordinates: rows ``[r0, r1)`` and columns ``[c0, c1)``, each int64
+    ``(n, len(zs), L / ty, L / chunk)``.
 
     On a z-plane ``u/w`` and ``v/w`` are linear-fractional in ``(x,
     y)``, so where ``w > 0`` on the tile (``w`` is affine: at its four
@@ -566,12 +569,20 @@ def corner_boxes(geom, A: torch.Tensor, *, ty: int, chunk: int, band: int,
     ``(band, width)`` window (at :func:`corner_lows`' origin, clamped so
     the window ends inside the ``(pad_rows, pad_cols)`` image) and to
     the bordered image; it is empty where ``r1 <= r0`` or ``c1 <= c0``.
+    K3 and K4 cut each matrix's box to its own window (``group=1``); K5
+    cuts it to its group's: with ``group=g`` each run of ``g``
+    consecutive matrices shares the window at the least of their
+    origins.
     """
     lo_r, hi_r, lo_c, hi_c, flat = _corner_span(geom, A, ty, chunk, zs)
     fr, fc = torch.floor(lo_r).to(torch.int64), \
         torch.floor(lo_c).to(torch.int64)
     wr = torch.clamp(torch.clamp(fr, min=0), max=pad_rows - band)
     wc = torch.clamp(torch.clamp(fc, min=0), max=pad_cols - width)
+    if group > 1:
+        wr, wc = (o.reshape((-1, group) + o.shape[1:]).amin(
+            dim=1, keepdim=True).expand((-1, group) + o.shape[1:])
+            .reshape(o.shape) for o in (wr, wc))
     gr = torch.floor(hi_r).to(torch.int64) + 3 + _BOX_MARGIN
     gc = torch.floor(hi_c).to(torch.int64) + 3 + _BOX_MARGIN
     r0 = torch.where(flat, wr, torch.maximum(wr, fr + 1 - _BOX_MARGIN))
@@ -631,6 +642,57 @@ def strip_box_slots(geom, matrices, *, ty: int, chunk: int, band: int,
             for j, i in enumerate(idx):
                 _remember(_BOXES, keys[i], (int(rows[j]), int(units[j])))
     return np.array([_BOXES[k] for k in keys], np.int64).reshape(-1, 2)
+
+
+def shared_box_slots(geom, matrices, *, ty: int, chunk: int, band: int,
+                     width: int, pad_rows: int, pad_cols: int,
+                     itemsize: int, pbatch: int | None = None,
+                     device=None) -> np.ndarray:
+    """The 16-byte units a launch of K5 needs per slot, for each group of
+    ``pbatch`` consecutive matrices (full groups, then the remainder, as
+    the folds batch them; ``None``: one group of all): the largest over
+    every tile and z-plane of the total of the group's boxes
+    (:func:`box_slot_dims` of :func:`corner_boxes`, cut to the group's
+    window), which the kernel packs back to back in one slot.  An
+    ``(n_groups,)`` int64 array.  ``matrices`` are taken in float32, as
+    the kernel takes them; each group's result is memoised, and the
+    groups not seen before are computed in batches on ``device``
+    (default: where the matrices lie)."""
+    if geom.L % ty or geom.L % chunk:
+        raise ValueError(f"ty={ty} and chunk={chunk} must divide "
+                         f"L={geom.L}")
+    if torch.is_tensor(matrices):
+        m32 = matrices.detach().to("cpu", torch.float32).numpy()
+    else:
+        m32 = np.asarray(matrices, np.float32)
+    m32 = m32.reshape(-1, 3, 4)
+    n = len(m32)
+    pb = n if pbatch is None else max(1, min(int(pbatch), n))
+    groups = [(s, min(s + pb, n)) for s in range(0, n, pb)]
+    head = ("group", _gkey(geom), ty, chunk, band, width, pad_rows,
+            pad_cols, int(itemsize))
+    keys = [head + (m32[s:e].tobytes(),) for s, e in groups]
+    found = {i: _BOXES[k] for i, k in enumerate(keys) if k in _BOXES}
+    per = geom.L * (geom.L // ty) * (geom.L // chunk)
+    for size in sorted({e - s for s, e in groups}):
+        todo = [i for i, (s, e) in enumerate(groups)
+                if e - s == size and i not in found]
+        for a, b in _batches(len(todo) * size, per, multiple=size):
+            idx = todo[a // size:b // size]
+            A = torch.as_tensor(np.concatenate(
+                [m32[groups[i][0]:groups[i][1]] for i in idx]),
+                device=_device(matrices, device))
+            rows, units = box_slot_dims(corner_boxes(
+                geom, A, ty=ty, chunk=chunk, band=band, width=width,
+                pad_rows=pad_rows, pad_cols=pad_cols, group=size),
+                itemsize)
+            total = (rows * units).reshape((len(idx), size)
+                                           + rows.shape[1:]).sum(dim=1)
+            total = total.amax(dim=(1, 2, 3)).cpu()
+            for j, i in enumerate(idx):
+                found[i] = int(total[j])
+                _remember(_BOXES, keys[i], found[i])
+    return np.array([found[i] for i in range(len(keys))], np.int64)
 
 
 def shared_window_cover(geom: Geometry, matrices, *, ty: int, chunk: int,

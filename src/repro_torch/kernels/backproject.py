@@ -16,12 +16,13 @@ and, at P = 1, ``::backproject_kernel_db``), K4 ``strip_micro``
 ``::backproject_kernel_micro``) and K5 ``strip_shared``
 (``::backproject_kernel_batch_shared``).  :func:`launch_strip` launches
 one of them; :func:`strip_smem_bytes` is the shared-memory byte model
-both it and the tuner's candidate screen use.  K3 and K4 stage per tile
-and projection the box of taps the tile reads, in slots sized by the
-launch's largest box (:func:`repro_torch.core.clipping.strip_box_slots`);
-a box its slot had to cut is counted on the card
-(:func:`strip_clamped`).  The libraries are built at first use
-(:mod:`._build`).
+both it and the tuner's candidate screen use.  Each stages per tile and
+projection the box of taps the tile reads: K3 and K4 in slots sized by
+the launch's largest box (:func:`repro_torch.core.clipping.strip_box_slots`),
+K5 a tile's boxes packed in one slot sized by the launch's largest
+per-tile total (:func:`repro_torch.core.clipping.shared_box_slots`); a
+box its slot had to cut is counted on the card (:func:`strip_clamped`).
+The libraries are built at first use (:mod:`._build`).
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ from . import _build
 __all__ = ["LAUNCHES", "MAX_PBATCH", "SMEM_LIMIT", "STRIP_KINDS",
            "WIRE_ITEMSIZE", "WIRE_LAUNCH_KEYS", "launch_backproject",
            "launch_strip", "pitch_stack", "reset_strip_clamped",
-           "strip_clamped", "strip_launch_key", "strip_smem_bytes",
-           "window_units"]
+           "shared_slot_units", "strip_clamped", "strip_launch_key",
+           "strip_smem_bytes", "window_units"]
 
 # The LAUNCHES key suffix of each wire's instance.
 _WIRE_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16",
@@ -159,40 +160,46 @@ def strip_launch_key(kind: str, wire: torch.dtype, P: int) -> str:
     return f"strip_{kind}{_WIRE_SUFFIX[wire]}{p1}"
 
 
-def _row_words(width: int, itemsize: int) -> int:
-    # Any window row spans at most this many 4-byte words of its image
-    # row, wherever it starts (K5 stages words).
-    return (width * itemsize + 3) // 4 + 1
-
-
 def window_units(width: int, itemsize: int) -> int:
     """The most 16-byte units a row of a ``width``-element window spans,
     wherever it starts: the largest row a K3/K4 slot can need."""
     return (width * itemsize + 15) // 16 + 1
 
 
-# Bytes of one K3/K4 item record (window origin and box) in shared
-# memory beside its slot.
+# Bytes of one K3/K4 item record (window origin and box), and of one K5
+# box record (box and offset in its slot), in shared memory.
 _ITEM_BYTES = 32
+_BOX_BYTES = 32
+# K5 plans a tile two ahead of its fold: three sets of P box records,
+# and a ring of two slots.
+_SHARED_SETS, _SHARED_SLOTS = 3, 2
+
+
+def shared_slot_units(P: int, band: int, width: int, itemsize: int) -> int:
+    """The most 16-byte units a K5 slot can need: ``P`` boxes, each at
+    most its ``(band, width)`` window (:func:`window_units` a row)."""
+    return P * band * window_units(width, itemsize)
 
 
 def strip_smem_bytes(kind: str, P: int, *, ty: int, chunk: int, band: int,
                      width: int, itemsize: int, depth: int = 2,
-                     group: int = 8,
-                     slot: tuple[int, int] | None = None) -> int:
+                     group: int = 8, slot=None) -> int:
     """Dynamic shared memory of one block of strip kernel ``kind``: the
-    ``P x 12`` matrices, then K5's ``P``-deep slab of ``(band, width)``
-    windows at the wire's ``itemsize`` (whole 4-byte words per row), or
-    the rings of K3 (``depth`` slots) and K4 (2): per slot an item record
-    and ``slot = (rows, units)`` 16-byte units, and K4's reduction
-    scratch where a micro group does not divide a warp.  ``slot=None``
-    takes the window's worst case, ``(band, window_units(width,
-    itemsize))``, which no box exceeds: the tuner's screen.  The int8
-    scale block is read from device memory, not staged.  The launcher
-    refuses a configuration above :data:`SMEM_LIMIT`."""
+    ``P x 12`` matrices, then the rings of K3 (``depth`` slots) and K4
+    (2): per slot an item record and ``slot = (rows, units)`` 16-byte
+    units, and K4's reduction scratch where a micro group does not divide
+    a warp; or K5's three sets of ``P`` box records and two slots of
+    ``slot`` 16-byte units each (an int: a tile's packed boxes).
+    ``slot=None`` takes the window's worst case, which no box exceeds
+    (K3/K4 ``(band, window_units(width, itemsize))``, K5
+    :func:`shared_slot_units`).  The int8 scale block is read from
+    device memory, not staged.  The launcher refuses a configuration
+    above :data:`SMEM_LIMIT`."""
     n = (P * 48 + 15) // 16 * 16
     if kind == "shared":
-        return n + P * band * _row_words(width, itemsize) * 4
+        units = shared_slot_units(P, band, width, itemsize) if slot is None \
+            else int(slot)
+        return n + _SHARED_SETS * P * _BOX_BYTES + _SHARED_SLOTS * units * 16
     rows, units = (band, window_units(width, itemsize)) if slot is None \
         else slot
     n += {"db": depth, "micro": 2}[kind] * (_ITEM_BYTES + rows * units * 16)
@@ -215,7 +222,7 @@ def pitch_stack(stack: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# One int32 per device: the K3/K4 items whose box their slot cut.
+# One int32 per device: the boxes a strip kernel's slot cut.
 _CLAMPED: dict = {}
 
 
@@ -228,10 +235,10 @@ def _clamp_counter(device: torch.device) -> torch.Tensor:
 
 
 def strip_clamped(device) -> int:
-    """The K3/K4 items on ``device`` whose box their slot had to cut since
+    """The boxes on ``device`` that a strip kernel's slot had to cut since
     the last :func:`reset_strip_clamped` (it synchronises).  The slots
-    are sized by the largest box, so the count stays 0; a cut box drops
-    taps."""
+    are sized by the largest box (K5: the largest tile's boxes), so the
+    count stays 0; a cut box drops taps."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -263,7 +270,7 @@ def launch_strip(volume: torch.Tensor, stack: torch.Tensor,
                  band: int, width: int, pad_rows: int, pad_cols: int,
                  depth: int = 2, group: int = 8, gband: int = 8,
                  gwidth: int = 32, scales: torch.Tensor | None = None,
-                 slot: tuple[int, int] | None = None) -> torch.Tensor:
+                 slot=None) -> torch.Tensor:
     """``volume += Σ_p bilinear(stack[p]) / w_p²`` through strip kernel
     ``kind`` (``"db"``, ``"micro"`` or ``"shared"``) on the card, in
     place.
@@ -271,8 +278,8 @@ def launch_strip(volume: torch.Tensor, stack: torch.Tensor,
     ``volume``: ``(nz, L, L)`` float32 from global plane ``z0``;
     ``stack``: ``(P, n_v + 2, pitch)`` bordered images on the wire
     (float32, bfloat16, or int8 codes with ``scales`` ``(P, 2, n_v +
-    2)``), each row zero-padded to whole 16-byte units (4-byte words
-    for K5; :func:`pitch_stack`); ``mats``: ``(P, 3, 4)`` float32.  The
+    2)``), each row zero-padded to whole 16-byte units
+    (:func:`pitch_stack`); ``mats``: ``(P, 3, 4)`` float32.  The
     tile ``(ty, chunk)`` divides ``L`` and has at most 1024 voxels; the
     window ``(band, width)`` is clamped into the ``(pad_rows,
     pad_cols)`` image
@@ -281,10 +288,13 @@ def launch_strip(volume: torch.Tensor, stack: torch.Tensor,
     ``(gband, gwidth)`` lies in the strip.  ``slot``: K3's and K4's
     ``(rows, units)`` per slot, at least the launch's largest box
     (:func:`repro_torch.core.clipping.strip_box_slots`, max over its
-    matrices) and at most the window's; ``None`` takes the window's.  A
-    box its slot cuts is counted (:func:`strip_clamped`).  The caller
-    has checked the windows against the planner.  Raises on anything
-    else, and when the launch is refused.
+    matrices) and at most the window's; K5's 16-byte units per slot (an
+    int), at least the launch's largest per-tile total
+    (:func:`repro_torch.core.clipping.shared_box_slots`) and at most
+    :func:`shared_slot_units`; ``None`` takes the most.  A box its slot
+    cuts is counted (:func:`strip_clamped`).  The caller has checked the
+    windows against the planner.  Raises on anything else, and when the
+    launch is refused.
     """
     if kind not in STRIP_KINDS:
         raise ValueError(f"unknown strip kernel {kind!r}; want one of "
@@ -317,13 +327,12 @@ def launch_strip(volume: torch.Tensor, stack: torch.Tensor,
     P = int(stack.shape[0]) if stack.ndim == 3 else -1
     rows, cols = n_v + 2, n_u + 2
     isz = stack.element_size()
-    unit = 4 if kind == "shared" else 16
     if (stack.ndim != 3 or stack.shape[1] != rows or stack.shape[2] < cols
-            or (stack.shape[2] * isz) % unit or stack.data_ptr() % unit):
+            or (stack.shape[2] * isz) % 16 or stack.data_ptr() % 16):
         raise ValueError(
             f"stack must be (P, {rows}, pitch) with pitch >= {cols}, "
-            f"{unit}-byte aligned with whole {unit}-byte rows "
-            f"(pitch_stack); got {tuple(stack.shape)}")
+            f"16-byte aligned with whole 16-byte rows (pitch_stack); got "
+            f"{tuple(stack.shape)}")
     if mats.shape != (P, 3, 4) or not 1 <= P <= MAX_PBATCH:
         raise ValueError(f"want mats (P, 3, 4) with 1 <= P <= "
                          f"{MAX_PBATCH}; got {tuple(mats.shape)}")
@@ -344,12 +353,20 @@ def launch_strip(volume: torch.Tensor, stack: torch.Tensor,
             f"micro window (group={group}, gband={gband}, gwidth="
             f"{gwidth}) needs group | chunk={chunk} and a window inside "
             f"the ({band}, {width}) strip")
-    most = (band, window_units(width, isz))
-    slot = most if slot is None else (int(slot[0]), int(slot[1]))
-    if kind != "shared" and not (0 <= slot[0] <= most[0]
-                                 and 0 <= slot[1] <= most[1]):
-        raise ValueError(f"slot {slot} (rows, 16-byte units) must lie "
-                         f"within the window's {most}")
+    if kind == "shared":
+        most = shared_slot_units(P, band, width, isz)
+        slot = most if slot is None else int(slot)
+        if not 0 <= slot <= most:
+            raise ValueError(f"slot of {slot} 16-byte units must lie "
+                             f"within the {P} windows' {most}")
+        slot_dims = (1, slot)
+    else:
+        most = (band, window_units(width, isz))
+        slot = slot_dims = most if slot is None else (int(slot[0]),
+                                                      int(slot[1]))
+        if not (0 <= slot[0] <= most[0] and 0 <= slot[1] <= most[1]):
+            raise ValueError(f"slot {slot} (rows, 16-byte units) must lie "
+                             f"within the window's {most}")
     smem = strip_smem_bytes(kind, P, ty=ty, chunk=chunk, band=band,
                             width=width, itemsize=isz, depth=depth,
                             group=group, slot=slot)
@@ -367,7 +384,7 @@ def launch_strip(volume: torch.Tensor, stack: torch.Tensor,
             None if scales is None else scales.data_ptr(), mats.data_ptr(),
             P, L, nz, int(z0), rows, cols, (int(stack.shape[2]) * isz) // 4,
             n_u, n_v, float(O), float(MM), ty, chunk, band, width, pad_rows,
-            pad_cols, depth, group, gband, gwidth, slot[0], slot[1],
+            pad_cols, depth, group, gband, gwidth, *slot_dims,
             _clamp_counter(volume.device).data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"strip_{kind} kernel launch failed: CUDA error "

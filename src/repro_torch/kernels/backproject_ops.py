@@ -21,7 +21,7 @@ The reference's tiling keywords have their Hopper meaning:
   ``strip_micro``, a ``(micro_band, micro_width)`` window per run of
   ``micro_group`` x-voxels inside the strip (rows 5 and 8);
 * ``shared_window``, ``shared_band``, ``shared_width``: K5
-  ``strip_shared``, one window slab per tile and projection group,
+  ``strip_shared``, one window per tile shared by the projection group,
   sized by the planner unless pinned (row 6).
 
 The variants are exclusive.  With no variant flag, row 1 runs
@@ -42,8 +42,9 @@ import torch.nn.functional as F
 from .._device import as_f32
 from ..core.backproject import (DEFAULT_PBATCH, GeomStatic, _stream_batches,
                                 strip_wire_dtype)
-from ..core.clipping import (_round8, _round128, shared_window_cover,
-                             strip_box_slots, strip_needs)
+from ..core.clipping import (_round8, _round128, shared_box_slots,
+                             shared_window_cover, strip_box_slots,
+                             strip_needs)
 from ..core.geometry import Geometry
 from .backproject import (WIRE_ITEMSIZE, launch_backproject, launch_strip,
                           pitch_stack)
@@ -337,17 +338,21 @@ def backproject_batch(volume, images, mats, geom: Geometry | GeomStatic, *,
         codes, scales = _split(_on_wire(images, wire))
         stack = pitch_stack(codes) if scales is None \
             else (pitch_stack(codes), scales)
-        # K3/K4: each matrix's largest tap box, so that every launch sizes
-        # its slots by the largest of its own matrices.
-        slots = torch.zeros(len(mats), 2, dtype=torch.int64)
-        if kind != "shared":
-            slots = torch.from_numpy(strip_box_slots(
-                gs, mats, itemsize=WIRE_ITEMSIZE[strip_dtype], **win))
+        # Every launch sizes its slots from its own matrices: K3/K4 by
+        # each matrix's largest tap box, K5 by its group's largest tile.
+        isz = WIRE_ITEMSIZE[strip_dtype]
+        if kind == "shared":
+            per_group = shared_box_slots(gs, mats, itemsize=isz,
+                                         pbatch=pbatch, **win)
+            slots = torch.from_numpy(per_group.repeat(pbatch)[:len(mats)])
+        else:
+            slots = torch.from_numpy(strip_box_slots(gs, mats, itemsize=isz,
+                                                     **win))
 
         def launch(vol, part, ms):
             sl, st = part
             c, s = _split(st)
-            slot = None if kind == "shared" else \
+            slot = int(sl.max()) if kind == "shared" else \
                 tuple(int(n) for n in sl.amax(dim=0))
             return launch_strip(
                 vol, c.contiguous(), ms.contiguous(), kind=kind, z0=z0,

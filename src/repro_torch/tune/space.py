@@ -7,10 +7,10 @@ name, which here names the CUDA kernels of
 :mod:`repro_torch.kernels.backproject_ops`), each crossed with the
 ``pbatch`` axis.  Where the reference screened a kernel candidate
 against its VMEM budget, the port screens it against the card's shared
-memory per block (:func:`kernel_smem_bytes`): the staged windows at the
-wire's itemsize and the ``P x 12`` matrices, the one byte model the
-launcher also enforces.  The CUDA kernels build no one-hot temporaries,
-so none are counted.
+memory per block (:func:`kernel_smem_bytes`): the staged windows (K5:
+its tiles' packed tap boxes) at the wire's itemsize and the ``P x 12``
+matrices, the one byte model the launcher also enforces.  The CUDA
+kernels build no one-hot temporaries, so none are counted.
 """
 
 from __future__ import annotations
@@ -33,20 +33,25 @@ _PBATCHES = (1, 4)
 def pallas_batch_fits_smem(*, pbatch: int, ty: int, chunk: int, band: int,
                            width: int, depth: int = 2,
                            itemsize: int = 4) -> bool:
-    """Does a kernel staging ``depth`` ``(band, width)`` windows (a ring,
-    or K5's ``pbatch``-deep slab: ``depth=pbatch``) at ``itemsize`` fit
-    one block's shared memory, with ``pbatch`` matrices beside them?"""
+    """Does a kernel staging ``depth`` ``(band, width)`` windows at
+    ``itemsize`` fit one block's shared memory, with ``pbatch`` matrices
+    beside them?  (The candidate screen, also of K5 as the reference
+    screened it: a ``pbatch``-deep slab, ``depth=pbatch``.)"""
     return strip_smem_bytes("db", pbatch, ty=ty, chunk=chunk, band=band,
                             width=width, itemsize=itemsize,
                             depth=depth) <= SMEM_LIMIT
 
 
-def kernel_smem_bytes(gs: GeomStatic, cfg: dict) -> int:
+def kernel_smem_bytes(gs: GeomStatic, cfg: dict,
+                      slot: int | None = None) -> int:
     """Shared memory per block of the kernel a tuned config runs, at its
     clamped tile: 0 for row 1 (it stages only the matrices, which need no
-    opt-in), the ring of K3/K4, K5's slab (at the pinned window, else at
-    twice the base strip, the screen the tuner applies before the
-    planner sizes the real slab)."""
+    opt-in), the ring of K3/K4, or K5's box records and its two slots of
+    ``slot`` 16-byte units: the launch's largest tile of packed boxes,
+    which only the matrices tell
+    (:func:`repro_torch.core.clipping.shared_box_slots`; the sweep
+    sizes it so).  Without them, K5 counts its records alone: the screen
+    refuses only a group whose records cannot fit a block."""
     from ..kernels.backproject_ops import clamp_tiles
 
     ty, chunk, band, width = clamp_tiles(
@@ -55,11 +60,9 @@ def kernel_smem_bytes(gs: GeomStatic, cfg: dict) -> int:
     pbatch = max(1, int(cfg.get("pbatch", 1)))
     itemsize = WIRE_ITEMSIZE[str(cfg.get("strip_dtype", "float32"))]
     if cfg.get("shared_window", False):
-        band = int(cfg.get("shared_band") or 2 * band)
-        width = int(cfg.get("shared_width") or 2 * width)
-        _, _, band, width = clamp_tiles(gs, ty, chunk, band, width)
         return strip_smem_bytes("shared", pbatch, ty=ty, chunk=chunk,
-                                band=band, width=width, itemsize=itemsize)
+                                band=band, width=width, itemsize=itemsize,
+                                slot=slot or 0)
     if cfg.get("double_buffer", False):
         return strip_smem_bytes("db", pbatch, ty=ty, chunk=chunk, band=band,
                                 width=width, itemsize=itemsize,
@@ -159,8 +162,9 @@ def pallas_candidates(gs: GeomStatic,
         if pallas_batch_fits_smem(pbatch=pb, itemsize=1, **base):
             cands.append(Candidate.of("pallas", pbatch=pb,
                                       strip_dtype="int8", **base))
-        # K5: the slab auto-sizes from the group planner at run time;
-        # the screen assumes up to twice the base strip per slab.
+        # K5: the reference's screen, a slab of up to twice the base
+        # strip, keeps its candidate set; the sweep then sizes K5's
+        # window and box slots from the planner over every matrix.
         if pallas_batch_fits_smem(pbatch=pb, ty=base["ty"],
                                   chunk=base["chunk"],
                                   band=2 * base["band"],

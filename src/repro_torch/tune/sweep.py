@@ -34,7 +34,7 @@ from ..core.geometry import Geometry, projection_matrices, \
     projection_matrix
 from .cache import device_identity
 from .space import WIRE_ITEMSIZE, Candidate, default_space, \
-    pallas_batch_fits_smem
+    kernel_smem_bytes
 from .timing import time_fn
 
 __all__ = ["Timing", "SweepResult", "sweep_strategies"]
@@ -99,16 +99,19 @@ def _check_kernel_windows(geom: Geometry, gs: GeomStatic, mats_all,
                           opts: dict, pbatch: int, dev) -> None:
     """The kernel candidate's windows over every matrix, as the wrapper
     would run them; raises ``ValueError`` with the reason."""
+    from ..core.clipping import shared_box_slots
+    from ..kernels.backproject import SMEM_LIMIT
     from ..kernels.backproject_ops import (check_variant_windows,
                                            clamp_tiles, shared_window_dims)
+    from ..kernels.backproject_ref import padded_dims
 
     if not opts.get("shared_window", False):
         # K4 is checked at its own window, the values the candidate
         # persists.
         check_variant_windows(geom, mats_all, opts, device=dev)
         return
-    # Size the slab over the full matrix set (what a run resolves) and
-    # screen it against the shared memory of a block.
+    # Size the window and the box slots over the full matrix set (what a
+    # run resolves) and screen them against the shared memory of a block.
     ty, chunk, _, _ = clamp_tiles(gs, opts.get("ty", 8),
                                   opts.get("chunk", 128), 16, 512)
     pb_eff = max(1, min(pbatch, geom.n_proj))
@@ -116,13 +119,19 @@ def _check_kernel_windows(geom: Geometry, gs: GeomStatic, mats_all,
         geom, mats_all, ty=ty, chunk=chunk, pbatch=pb_eff,
         shared_band=opts.get("shared_band"),
         shared_width=opts.get("shared_width"), device=dev)
+    _, _, sband, swidth = clamp_tiles(gs, ty, chunk, sband, swidth)
     itemsize = WIRE_ITEMSIZE[str(opts.get("strip_dtype", "float32"))]
-    if not pallas_batch_fits_smem(pbatch=pb_eff, ty=ty, chunk=chunk,
-                                  band=sband, width=swidth, depth=pb_eff,
-                                  itemsize=itemsize):
+    pad_rows, pad_cols = padded_dims(gs, sband, swidth, itemsize)
+    slot = int(shared_box_slots(
+        gs, mats_all, ty=ty, chunk=chunk, band=sband, width=swidth,
+        pad_rows=pad_rows, pad_cols=pad_cols, itemsize=itemsize,
+        pbatch=pb_eff, device=dev).max())
+    smem = kernel_smem_bytes(gs, dict(opts, pbatch=pb_eff), slot=slot)
+    if smem > SMEM_LIMIT:
         raise ValueError(
-            f"shared window ({sband}, {swidth}) x pbatch={pb_eff} "
-            f"exceeds the shared memory of a block")
+            f"shared window ({sband}, {swidth}) x pbatch={pb_eff}: its "
+            f"tiles' boxes need {smem} B of shared memory per block, "
+            f"more than a block's {SMEM_LIMIT} B")
 
 
 def sweep_strategies(geom: Geometry, *, image=None, A=None,

@@ -248,6 +248,86 @@ def test_strip_clamp_counter_counts_cut_boxes(dev):
     assert strip_clamped(dev) == 0
 
 
+_G64 = Geometry().scaled(64, n_proj=8)
+
+
+def _box_case64(dev):
+    """L = 64, 8 views (one with w vanishing on the plane x = 0), for the
+    tiles (1, 64) and (8, 32) that full-width runs use."""
+    mats = projection_matrices(_G64)
+    mats[5, 2] = [1.0, 0.0, 0.0, 0.0]
+    rng = np.random.default_rng(23)
+    imgs = torch.tensor(rng.standard_normal(
+        (8, _G64.n_v, _G64.n_u)).astype(np.float32), device=dev)
+    vol = torch.tensor(rng.standard_normal((64,) * 3).astype(np.float32),
+                       device=dev)
+    return imgs, torch.tensor(mats, device=dev), vol
+
+
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
+def test_shared_boxes_equal_plain_at_each_batch(dev, wire):
+    """K5 stages each projection's tap box cut to the group window,
+    packed per tile: bitwise equal to its plain version at tiles (1, 64)
+    and (8, 32), P = 1, 4 and 8, at the planner's window and at one
+    wider than it (so the cut matters), one launch per batch, and no
+    box cut by its slot."""
+    from repro_torch.core import clipping
+    from repro_torch.kernels import backproject_ops as ops
+    from repro_torch.kernels.backproject import (reset_strip_clamped,
+                                                 strip_clamped)
+
+    imgs, mats, vol = _box_case64(dev)
+    suffix = {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}[wire]
+    reset_strip_clamped()
+    for ty, chunk in ((1, 64), (8, 32)):
+        for P in (1, 4, 8):
+            nb, nw = clipping.shared_window_cover(
+                _G64, mats[:P].cpu(), ty=ty, chunk=chunk, pbatch=P)
+            for pin in ({}, dict(shared_band=nb + 8, shared_width=nw + 32)):
+                kw = dict(ty=ty, chunk=chunk, strip_dtype=wire,
+                          shared_window=True, **pin)
+                for k in LAUNCHES:
+                    LAUNCHES[k] = 0
+                got = ops.backproject_batch(vol.clone(), imgs[:P], mats[:P],
+                                            _G64, pbatch=P, **kw)
+                torch.cuda.synchronize()
+                assert LAUNCHES["strip_shared" + suffix] == 1
+                want = ops.backproject_batch(vol.cpu(), imgs[:P].cpu(),
+                                             mats[:P].cpu(), _G64, pbatch=P,
+                                             **kw)
+                assert torch.equal(got.cpu(), want), (ty, chunk, P, pin)
+    assert strip_clamped(dev) == 0
+
+
+def test_shared_slot_one_unit_short_counts_its_cut(dev):
+    """A K5 slot one 16-byte unit smaller than the launch's largest tile
+    of boxes cuts that tile's last box, and the cut is counted; the
+    slot shared_box_slots gives cuts nothing."""
+    from repro_torch.core import clipping
+    from repro_torch.kernels.backproject import (launch_strip, pitch_stack,
+                                                 reset_strip_clamped,
+                                                 strip_clamped)
+    from repro_torch.kernels.backproject_ref import padded_dims
+
+    imgs, mats, vol = _box_case64(dev)
+    gs = GeomStatic.of(_G64)
+    stack = pitch_stack(torch.nn.functional.pad(imgs[:4], (1, 1, 1, 1)))
+    band, width = clipping.shared_window_cover(_G64, mats[:4].cpu(), ty=8,
+                                               chunk=32, pbatch=4)
+    pr, pc = padded_dims(gs, band, width, 4)
+    win = dict(ty=8, chunk=32, band=band, width=width, pad_rows=pr,
+               pad_cols=pc)
+    slot = int(clipping.shared_box_slots(gs, mats[:4], itemsize=4,
+                                         **win)[0])
+    for size, cut in ((slot, False), (slot - 1, True)):
+        reset_strip_clamped()
+        launch_strip(vol.clone(), stack, mats[:4].contiguous(),
+                     kind="shared", z0=0, O=gs.O, MM=gs.MM, n_u=gs.n_u,
+                     n_v=gs.n_v, slot=size, **win)
+        assert (strip_clamped(dev) > 0) == cut
+    reset_strip_clamped()
+
+
 def test_planner_on_the_card_equals_the_host(dev):
     from repro_torch.core import clipping
 
@@ -344,6 +424,51 @@ def test_row_gather_equals_plain_and_embedding_bitwise(dev, dtype, V, D, n):
     assert torch.equal(got[0][ok],
                        torch.nn.functional.embedding(ids[ok], table))
     assert not got[0][~ok].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["odd_width", "one_row", "ragged_rows",
+                                  "all_out_of_range", "unaligned",
+                                  "long_batch"])
+def test_row_gather_grid_edges(dev, dtype, case):
+    """Row 9's grid over (row, 16-byte unit): rows whose bytes are not
+    whole 16-byte units (the element path), N = 1, N not a multiple of
+    a block's 4 rows, every id out of range, a table 4 bytes off
+    16-byte alignment, and N = 8192 at xlstm-125m's widths: bitwise equal
+    to its plain version and to F.embedding, zero bits where an id is out
+    of range, one launch per call."""
+    from repro_torch.kernels.gather import launch_onehot_gather
+    from repro_torch.kernels.gather_ref import gather_ref
+
+    V, D, n = {"odd_width": (97, 7 if dtype == torch.float32 else 12, 37),
+               "one_row": (500, 768, 1), "ragged_rows": (500, 768, 37),
+               "all_out_of_range": (64, 768, 9),
+               "unaligned": (300, 768, 21),
+               "long_batch": (50304, 768, 8192)}[case]
+    g = torch.Generator(device=dev).manual_seed(n + D)
+    if case == "unaligned":
+        flat = torch.randn((V * D + 1,), generator=g, device=dev).to(dtype)
+        table = flat[1:].view(V, D)
+        assert table.data_ptr() % 16
+    else:
+        table = torch.randn((V, D), generator=g, device=dev).to(dtype)
+    ids = torch.randint(0, V, (n,), generator=g, device=dev)
+    if case == "all_out_of_range":
+        ids = torch.tensor([-5, -1, V, V + 7, 2 ** 40, -2 ** 40, V, -1, V],
+                           device=dev)
+    elif n > 2:
+        ids[0], ids[n // 2] = -1, V
+    before = LAUNCHES["onehot_gather"]
+    got = launch_onehot_gather(table, ids)
+    torch.cuda.synchronize()
+    assert LAUNCHES["onehot_gather"] == before + 1
+    assert got.shape == (n, D) and got.dtype == dtype
+    assert torch.equal(got, gather_ref(table, ids))
+    ok = (ids >= 0) & (ids < V)
+    assert torch.equal(got[ok], torch.nn.functional.embedding(ids[ok],
+                                                              table))
+    bits = got.view(torch.int32 if dtype == torch.float32 else torch.int16)
+    assert not bits[~ok].any()
 
 
 @pytest.mark.parametrize("B,S", [(1, 1), (3, 1), (2, 37), (4, 300)])

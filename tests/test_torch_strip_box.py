@@ -296,10 +296,11 @@ def test_strip_smem_bytes_counts_slots_in_16_byte_units():
         assert strip_smem_bytes("db", 4, ty=1, chunk=64, band=32,
                                 width=224, itemsize=isz, depth=2) == \
             mats + 2 * (32 + 32 * window_units(224, isz) * 16)
-    # K5 keeps its slab of whole 4-byte words.
+    # K5: three sets of P box records and two slots of packed boxes; no
+    # slot takes P whole windows in 16-byte units.
     assert strip_smem_bytes("shared", 4, ty=1, chunk=64, band=16,
                             width=256, itemsize=4) == \
-        mats + 4 * 16 * (256 + 1) * 4
+        mats + 3 * 4 * 32 + 2 * 4 * 16 * window_units(256, 4) * 16
     # The planner's window at the reference's base tile does not fit a
     # ring; its largest box (at most 16 rows x 104 columns) does.
     assert strip_smem_bytes("db", 4, ty=8, chunk=32, band=160, width=1280,
