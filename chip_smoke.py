@@ -72,7 +72,14 @@ N_CHECK = 8               # projections of the full-width kernel check
 N_REMAINDER = 5           # plus a remainder batch
 CHUNK = 31                # projections per served chunk
 PBATCH = 4                # the engine's default fold depth
-TOL_KERNEL = 1e-5         # x max(1, max|ref|): fp32 order and FMA slack
+# Row 1 at odd shapes (phase 2): L off the kernel's 32 x 8 block, a slab
+# from plane ODD_Z0 of ODD_NZ planes (off its 8-voxel z run).
+ODD_L, ODD_Z0, ODD_NZ, ODD_PS = 37, 5, 13, (1, 3, 8)
+# Row 1's ms per launch at L = 512 before its z-run design (one voxel
+# per thread), as PERF.md's kernel table records them, printed beside
+# this run's.
+EARLIER_ROW1_MS = {("float32", 1): 1.0145, ("float32", 4): 2.8314,
+                   ("bfloat16", 4): 2.8011, ("int8", 4): 3.3302}
 TOL_STREAM = 1e-4         # x max|v|: streamed vs one-shot, arrival order
 MIN_PSNR_DB = 15.0        # an all-zero volume scores ~11 dB here
 # Narrow wires against the float32 volume: (min ROI PSNR, max drop of
@@ -231,10 +238,31 @@ def check_kernel(geom, dev, rng):
     return problem, check_wire(geom, problem, "float32")
 
 
+def odd_case(dev):
+    """Row 1's odd shapes: ``(geom, images, mats, slab)`` at L = ODD_L
+    with 8 random views, view 2's u row widened three-fold (taps off the
+    detector) and view 5's w row crossing 0 mid-volume (w <= 1e-6), and
+    a random ODD_NZ-plane slab."""
+    from repro_torch.core.geometry import Geometry, projection_matrices
+
+    geom = Geometry().scaled(ODD_L, n_proj=8)
+    rng = np.random.default_rng(SEED + 3)
+    mats = np.array(projection_matrices(geom), np.float64)
+    mats[2, 0] *= 3.0
+    centre = geom.O + (ODD_L - 1) / 2 * geom.MM
+    mats[5, 2, 3] = -mats[5, 2, :3].sum() * centre
+    images = rng.standard_normal((8, geom.n_v, geom.n_u), dtype=np.float32)
+    slab = rng.standard_normal((ODD_NZ, ODD_L, ODD_L), dtype=np.float32)
+    return (geom, torch.tensor(images, device=dev),
+            torch.tensor(mats.astype(np.float32), device=dev),
+            torch.tensor(slab, device=dev))
+
+
 def check_wire(geom, problem, wire):
-    """The kernel on ``wire`` against its plain version (P = 8 plus a
-    P = 5 remainder, and P = 1), then its times at P = 1, 4, 8 on the
-    stack the wrapper puts on the wire, and the plain version's at
+    """The kernel on ``wire`` against its plain version, max|d| = 0 (P = 8
+    plus a P = 5 remainder, P = 1, and the odd shapes of
+    :func:`odd_case` at P = 1, 3, 8), then its times at P = 1, 4, 8 on
+    the stack the wrapper puts on the wire, and the plain version's at
     P = 4."""
     from repro_torch.core.backproject import GeomStatic
     from repro_torch.kernels import backproject_batch, backproject_one
@@ -254,9 +282,9 @@ def check_wire(geom, problem, wire):
         err = float((out - ref).abs().max())
         top = float(ref.abs().max())
         print(f"  {wire} {name}: max|d| {err:.3e}  max|ref| {top:.4f}  "
-              f"bound {TOL_KERNEL * max(1.0, top):.3e}")
-        if not err <= TOL_KERNEL * max(1.0, top):
-            fail(f"{wire} kernel disagrees with its plain version ({name})")
+              f"(must be 0)")
+        if not torch.equal(out, ref):
+            fail(f"{wire} kernel differs from its plain version ({name})")
         errs.append(err)
 
     # P = 8, then the 5-projection remainder: one wrapper call, two
@@ -276,6 +304,14 @@ def check_wire(geom, problem, wire):
                                 wire=wire)
     compare("P=1 (backproject_one)", one, ref)
     del one, ref
+    geom_odd, imgs_odd, mats_odd, slab = odd_case(imgs.device)
+    for P in ODD_PS:
+        out = backproject_batch(slab.clone(), imgs_odd, mats_odd, geom_odd,
+                                pbatch=P, z0=ODD_Z0, strip_dtype=wire)
+        ref = backproject_batch_ref(slab.clone(), imgs_odd, mats_odd,
+                                    GeomStatic.of(geom_odd), z0=ODD_Z0,
+                                    wire=wire)
+        compare(f"L={ODD_L} z0={ODD_Z0} nz={ODD_NZ} P={P}", out, ref)
 
     # Kernel times at the main path's shapes, P = 4 (the engine's fold)
     # and 8, and P = 1; launched on the wire stack the wrapper builds.
@@ -294,9 +330,11 @@ def check_wire(geom, problem, wire):
             scales=None if scales is None else scales[:P]), reps=10)
         bms, by = bound_ms(L, L, P, rows, cols, wire)
         timing[P] = (ms, bms, by)
+        was = EARLIER_ROW1_MS.get((wire, P))
         print(f"  {wire} kernel P={P}: {ms:.4f} ms per launch; bound "
               f"{bms:.4f} ms ({by}); {L ** 3 * P / (ms / 1e3) / 1e9:.2f} "
-              f"GUPS")
+              f"GUPS; one voxel per thread: "
+              + ("not recorded" if was is None else f"{was:.4f} ms"))
     # The plain version on the kernel's own inputs: on a narrow wire it
     # decodes the stack already on the wire (the encode is not timed).
     plain_ms = {}
@@ -318,26 +356,39 @@ def check_wire(geom, problem, wire):
 
 def check_quant(problem):
     """Phase 2b: the row encoder against its plain version, bitwise, on
-    the filtered 13-view full-width stack; its times per engine fold
-    (P = 4) and per served chunk (31 views)."""
+    the filtered 13-view full-width stack and on a stack off its tiles in
+    both modes; its times per engine fold (P = 4) and per served chunk
+    (31 views)."""
     from repro_torch.kernels.quant import launch_quantize_rows
     from repro_torch.quant import quantize_rows, quantize_rows_ref
 
     imgs = problem[0]
     padded = F.pad(imgs, (1, 1, 1, 1)).contiguous()
     P, rows, cols = padded.shape
-    got = quantize_rows(padded)
-    torch.cuda.synchronize()
-    want = quantize_rows_ref(padded)
+    # Off the encoder's 32-row block and 64-column tile: random, zero,
+    # constant and one-signed rows.
+    odd = torch.tensor(np.random.default_rng(SEED + 4).standard_normal(
+        (3, 37, 131), dtype=np.float32) * 3, device=padded.device)
+    odd[0, 0] = 0.0
+    odd[0, 1] = 2.5
+    odd[1, 2] = odd[1, 2].abs()
+    odd[2, 3] = -odd[2, 3].abs()
     err = 0.0
-    for name, a, b in zip(("codes", "scale", "offset"), got, want):
-        diff = int((a != b).sum())
-        d = float((a.float() - b.float()).abs().max())
-        print(f"  quantize_rows {name}: {diff} of {a.numel()} differ from "
-              f"the plain version (max|d| {d})")
-        if diff:
-            fail(f"row encoder {name} differ from the plain version")
-        err = max(err, d)
+    for label, x, symmetric in (("full width", padded, False),
+                                ("(3, 37, 131)", odd, False),
+                                ("(3, 37, 131) symmetric", odd, True)):
+        got = quantize_rows(x, symmetric=symmetric)
+        torch.cuda.synchronize()
+        want = quantize_rows_ref(x, symmetric=symmetric)
+        for name, a, b in zip(("codes", "scale", "offset"), got, want):
+            diff = int((a != b).sum())
+            d = float((a.float() - b.float()).abs().max())
+            print(f"  quantize_rows {label} {name}: {diff} of {a.numel()} "
+                  f"differ from the plain version (max|d| {d})")
+            if diff:
+                fail(f"row encoder {name} differ from the plain version "
+                     f"({label})")
+            err = max(err, d)
     chunk = padded.repeat(-(-CHUNK // P), 1, 1)[:CHUNK].contiguous()
     timing = {}
     for n, stack in ((PBATCH, padded[:PBATCH].contiguous()),

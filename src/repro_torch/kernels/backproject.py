@@ -137,6 +137,10 @@ def launch_backproject(volume: torch.Tensor, padded: torch.Tensor,
     if scales is not None and scales.shape != (P, 2, rows):
         raise ValueError(f"scales must be (P, 2, rows) = {(P, 2, rows)}; "
                          f"got {tuple(scales.shape)}")
+    if (rows + 3) * (cols + 3) >= 2**31 or max(rows, cols) >= 2**21:
+        raise ValueError(f"a ({rows}, {cols}) image is too large: the "
+                         f"kernel indexes a projection with 32-bit offsets "
+                         f"and floors tap coordinates below 2^22")
     if nz == 0:
         return volume
     head = [volume.data_ptr(), padded.data_ptr()]

@@ -15,7 +15,9 @@ rows, cols)`` stack.  On a CUDA tensor it launches the encoder kernel
 (``kernels/csrc/quant.cu``); on a CPU tensor it runs
 :func:`quantize_rows_ref`, the plain column loop.  The two agree
 bitwise: the kernel writes every float operation with explicit
-round-to-nearest intrinsics in the loop's order.
+round-to-nearest intrinsics in the loop's order, and takes the IEEE
+division of a step wherever the product with the row's reciprocal
+could round to another code.
 """
 
 from __future__ import annotations

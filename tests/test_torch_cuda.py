@@ -7,10 +7,10 @@ machine with a CUDA card and no JAX (``--noconftest`` skips
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/test_torch_cuda.py
 
-Without a card every test skips with a reason.  Tolerance for the back
-projection: 1e-5·max(1, max|ref|), as ``chip_smoke.py`` (the kernels
-write every float operation with round-to-nearest intrinsics in the
-plain version's order, so they agree bitwise in practice).  The row
+Without a card every test skips with a reason.  The back projection
+(row 1 on every wire) is held to its plain version exactly, rtol = atol
+= 0, as in ``chip_smoke.py``: the kernel writes every float operation
+with round-to-nearest intrinsics in the plain version's order.  The row
 encoder and the row gather are held bitwise (the gather to
 ``F.embedding`` too, on in-range ids).  The sLSTM recurrence is held to
 its plain version at rtol = atol = 2e-4, the reference's own kernel
@@ -26,6 +26,7 @@ from repro_torch.core.backproject import GeomStatic
 from repro_torch.core.filtering import filter_projections
 from repro_torch.core.geometry import Geometry, projection_matrices
 from repro_torch.core.phantom import forward_project
+from _row1_cases import hard_rows, odd_problem
 from repro_torch.kernels import LAUNCHES, backproject_batch
 from repro_torch.kernels.backproject_ref import backproject_batch_ref
 from repro_torch.quant import quantize_rows, quantize_rows_ref
@@ -41,10 +42,6 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     return torch.device("cuda")
-
-
-def _tol(ref: torch.Tensor) -> float:
-    return 1e-5 * max(1.0, float(ref.abs().max()))
 
 
 def _filtered(device):
@@ -68,6 +65,22 @@ def test_row_encoder_equals_plain_bitwise(dev, symmetric):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("shape", [(3, 37, 131), (1, 5, 1), (2, 33, 64),
+                                   (1, 1, 1250)])
+def test_row_encoder_bitwise_off_its_tiles(dev, symmetric, shape):
+    """Rows and columns off the encoder's 32-row block and 64-column
+    tile; zero, constant and one-signed rows, and rows whose quotients
+    lie within a few ulps of a half-integer, in both modes."""
+    P, rows, cols = shape
+    x = hard_rows(21 + cols, P=P, rows=rows, cols=cols, symmetric=symmetric)
+    got = quantize_rows(torch.tensor(x, device=dev), symmetric=symmetric)
+    torch.cuda.synchronize()
+    want = quantize_rows_ref(torch.tensor(x), symmetric=symmetric)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
 @pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
 def test_backprojection_equals_plain_on_each_wire(dev, wire):
     _, imgs = _filtered(dev)
@@ -81,7 +94,30 @@ def test_backprojection_equals_plain_on_each_wire(dev, wire):
     backproject_batch_ref(want, imgs[5:], mats[5:], gs, wire=wire)
     got = backproject_batch(vol, imgs, mats, G, pbatch=5, strip_dtype=wire)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=0, atol=_tol(want))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("P", [1, 3, 8])
+def test_row1_equals_plain_at_odd_shapes(dev, wire, P):
+    """L = 37 (no multiple of the 32 x 8 block), a 13-plane slab from
+    plane 5 (no multiple of the 8-voxel run), taps off the detector and a
+    view with w <= 1e-6: equal to the plain version on the CPU, rtol =
+    atol = 0, one launch per batch of P."""
+    geom, images, mats, volume, z0 = odd_problem()
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    got = backproject_batch(torch.tensor(volume, device=dev),
+                            torch.tensor(images, device=dev),
+                            torch.tensor(mats, device=dev), geom, pbatch=P,
+                            z0=z0, strip_dtype=wire)
+    torch.cuda.synchronize()
+    suffix = {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}[wire]
+    assert LAUNCHES["backproject" + suffix] == -(-len(images) // P)
+    want = backproject_batch_ref(torch.tensor(volume), torch.tensor(images),
+                                 torch.tensor(mats), GeomStatic.of(geom),
+                                 z0=z0, wire=wire)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
 
 def test_engine_int8_wire_launches_once_per_fold(dev):
