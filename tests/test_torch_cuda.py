@@ -534,6 +534,60 @@ def test_slstm_kernel_matches_plain(dev, B, S, fresh):
     torch.testing.assert_close(final, want_final, rtol=2e-4, atol=2e-4)
 
 
+def _slstm_against_plain(dev, zifo, r, state):
+    from repro_torch.kernels.slstm_ops import slstm_recurrence
+    from repro_torch.kernels.slstm_ref import slstm_recurrence_ref
+
+    before = LAUNCHES["slstm"]
+    hs, final = slstm_recurrence(zifo, r, state)
+    torch.cuda.synchronize()
+    assert LAUNCHES["slstm"] == before + 1
+    want_hs, want_final = slstm_recurrence_ref(zifo, r, state)
+    torch.testing.assert_close(hs, want_hs, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(final, want_final, rtol=2e-4, atol=2e-4)
+    return hs, final
+
+
+@pytest.mark.parametrize("fresh", [True, False])
+def test_slstm_kernel_long_memory(dev, fresh):
+    """Row 10 with the forget pre-activations shifted by +12 (a forget
+    gate of 1 - 6e-6: the log-forget comes from the kernel's series, and
+    its errors would compound along the memory), S = 2048 at di = 1536."""
+    from repro_torch.kernels.slstm_ref import init_slstm_state
+
+    B, S, di = 2, 2048, 1536
+    g = torch.Generator(device=dev).manual_seed(12)
+    zifo = torch.randn((B, S, 4, di), generator=g, device=dev)
+    zifo[:, :, 2] += 12.0
+    r = torch.randn((4, di), generator=g, device=dev) / di ** 0.5
+    if fresh:
+        state = init_slstm_state(B, di, device=dev)
+    else:
+        state = torch.randn((4, B, di), generator=g, device=dev)
+        state[1] = state[1].abs() + 1.0
+    _slstm_against_plain(dev, zifo, r, state)
+
+
+@pytest.mark.parametrize("fresh", [True, False])
+def test_slstm_kernel_extreme_gates(dev, fresh):
+    """Row 10 with pre-activations up to |30|, where tanh and sigmoid
+    saturate and exp(-|x|) flushes to 0, and recurrence weights of 3: the
+    outputs stay finite and within the tolerance."""
+    from repro_torch.kernels.slstm_ref import init_slstm_state
+
+    B, S, di = 3, 300, 96
+    g = torch.Generator(device=dev).manual_seed(30)
+    zifo = (torch.rand((B, S, 4, di), generator=g, device=dev) * 60 - 30)
+    r = torch.randn((4, di), generator=g, device=dev) * 3.0
+    if fresh:
+        state = init_slstm_state(B, di, device=dev)
+    else:
+        state = torch.randn((4, B, di), generator=g, device=dev) * 30
+        state[1] = state[1].abs() + 1.0
+    hs, final = _slstm_against_plain(dev, zifo, r, state)
+    assert bool(torch.isfinite(hs).all() and torch.isfinite(final).all())
+
+
 def _tiny_xlstm(impl):
     import dataclasses
 

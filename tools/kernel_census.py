@@ -1,29 +1,45 @@
-"""Count and time the port's row-1 back projection and row encoder, and
-hold them against an older checkout's, on one CUDA card.
+"""Count and time the port's row-1 back projection, row encoder and sLSTM
+recurrence, and hold them against an older checkout's, on one CUDA card.
 
     python3 tools/kernel_census.py [--parent DIR] [--out DIR] [--reps N]
+                                   [--only NAME ...]
 
 ``--parent`` names an unpacked older checkout (``git archive <commit>``
 into a directory that ``.gitignore`` lists, such as ``build/parent``);
 ``--out`` (default ``build/census``) receives the cubins, libraries,
-SASS listings and ``census.json``.
+SASS listings and ``census.json``; ``--only`` keeps some of the sources
+``backproject``, ``quant`` and ``slstm`` (default: all three).
 
-1. **Census.**  Compiles ``csrc/backproject.cu`` and ``csrc/quant.cu``
-   of this checkout (and of the parent) to a cubin with the port's
-   ``nvcc`` flags and ``-Xptxas -v``, prints each kernel's registers and
-   spill bytes, and counts the SASS of each kernel's loops by class
-   (FP32, integer/address, LDS, LDG, STS/STG, conversion/MUFU, control,
-   other).  For each loop it prints the static count of the whole body
-   and of its fast path (from the loop's head to its back branch: the
-   fewest calls, then the most unpredicated global loads, then the
-   longest; see :func:`fast_path`), and writes the listings to
-   ``--out``.
-2. **Turns.**  At full RabbitCT width (L = 512, 1248 x 960, filtered
-   views of the phantom and a random volume) it launches row 1 on the
-   float32, bfloat16 and int8 wires at P = 1, 4 and 8, and the encoder
-   at P = 4 and 31, in turns parent, change, change, parent (median of
-   ``--reps`` CUDA-event timings each), checks that the two give the
-   same bits, and prints one JSON line with the times.
+1. **Census.**  Compiles ``csrc/<name>.cu`` of this checkout (and of the
+   parent) to a cubin with the port's ``nvcc`` flags and ``-Xptxas -v``,
+   prints each kernel's registers and spill bytes, and counts the SASS
+   of each kernel's loops by class (FP32, integer/address, LDS, LDG,
+   STS/STG, conversion/MUFU, control, other).  For each loop it prints
+   the static count of the whole body and of its fast path (from the
+   loop's head to its back branch: the fewest calls, then the most
+   unpredicated global loads, then the longest; see :func:`fast_path`),
+   and writes the listings to ``--out``.  For the sLSTM kernel each
+   loop's counts are also given per token step (the loop's ``STG``
+   count: one ``h`` store a token), with the dependent path from one
+   step's ``h`` to the next (:func:`h_chain`, a def-use walk over the
+   SASS: its operations, the SFU ones among them, and its cycles at the
+   latencies below).
+2. **Latencies** (on a card).  ``tools/latency_probe.cu`` times chains of
+   dependent FFMA, FADD, MUFU.EX2, MUFU.RCP (less an FADD) and MUFU.LG2
+   (less an EX2) with ``clock64`` in one warp, and the SM clock against
+   the global timer.
+3. **Turns** (on a card).  At full RabbitCT width (L = 512, 1248 x 960,
+   filtered views of the phantom and a random volume) it launches row 1
+   on the float32, bfloat16 and int8 wires at P = 1, 4 and 8, and the
+   encoder at P = 4 and 31, in turns parent, change, change, parent
+   (median of ``--reps`` CUDA-event timings each), and checks that the
+   two give the same bits.  The sLSTM recurrence runs at di = 1536 and
+   (B, S) = (1, 1), (4, 1), (1, 512), (8, 512), (8, 2048) in the same
+   turns, timed on the device alone over repeated launches (the card
+   spins while the host enqueues) and one launch at a time with the
+   gates rewritten before each (as the gate projection leaves them), each
+   output held to the plain version at rtol = atol = 2e-4.  Prints one
+   JSON line with the times.
 
 Needs ``nvcc`` and ``cuobjdump`` (``CUDA_HOME`` or ``PATH``); imports no
 JAX.  Without a card it stops after the census.
@@ -45,7 +61,7 @@ sys.path.insert(0, str(_ROOT / "src"))
 
 from repro_torch.kernels import _build  # noqa: E402
 
-SOURCES = ("backproject", "quant")
+SOURCES = ("backproject", "quant", "slstm")
 CLASSES = ("fp32", "int", "lds", "ldg", "store", "conv_mufu", "control",
            "other")
 _FP32 = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK",
@@ -200,12 +216,122 @@ def _short(fn: str) -> str:
     m = re.search(r"([A-Za-z_]+)$", head)
     name = (m.group(1) if m else head) + "_kernel"
     t = re.match(r"INS_\d+(\w+?)E", tail)
-    return f"{name}<{t.group(1)}>" if t else name
+    if t:
+        return f"{name}<{t.group(1)}>"
+    t = re.match(r"ILb([01])E", tail)
+    return f"{name}<{'true' if t.group(1) == '1' else 'false'}>" if t \
+        else name
 
 
-def census(tree: pathlib.Path, label: str, outdir: pathlib.Path) -> dict:
+_REG = re.compile(r"(?<![\w.])(U?[RP]\d+)\b")
+_NO_DEST = ("ST", "STG", "STS", "STL", "RED", "BRA", "JMP", "EXIT", "BAR",
+            "NOP", "YIELD", "DEPBAR", "WARPSYNC", "BSSY", "BSYNC", "CALL",
+            "RET", "MEMBAR", "CCTL", "ERRBAR", "BREAK")
+
+
+def defs_uses(ins: str) -> tuple[set, set]:
+    """The registers and predicates ``ins`` writes and reads.  A
+    predicated write also reads what it writes (where its guard is off,
+    the old value stays)."""
+    guard = re.match(r"^@!?(U?P\d+)\s+", ins)
+    body = ins[guard.end():] if guard else ins
+    op, _, rest = body.partition(" ")
+    ops = [o.strip() for o in rest.split(",")] if rest else []
+    name = op.split(".")[0]
+    n_dest = 0 if name in _NO_DEST else 2 if name.endswith("SETP") else 1
+    defs = {r for o in ops[:n_dest] for r in _REG.findall(o)}
+    uses = {r for o in ops[n_dest:] for r in _REG.findall(o)}
+    if guard:
+        uses |= defs | {guard.group(1)}
+    return defs, uses
+
+
+def _cycles(op: str, lat) -> float:
+    if lat is None:
+        return 1.0
+    if op.startswith("MUFU"):
+        return lat.get(op.split(".")[1], lat["MUFU"])
+    return lat["FP32"]
+
+
+def h_chain(body, lat=None) -> dict:
+    """The dependent path from one token step's ``h`` to the next step's
+    in a loop body, by a def-use walk over its SASS in program order.  A
+    step's ``h`` is the register its ``STG`` stores; the path starts at
+    the instruction that wrote it and ends at the one that writes the
+    next store's.  Of all paths between them, the one of most cycles at
+    ``lat`` (``{"FP32": c, "EX2": c, "LG2": c, "RCP": c, "MUFU": c}``;
+    every instruction one cycle when None, so the longest).  A predicated
+    write reads the value it replaces, so two forms of one value under
+    opposite predicates count one after the other: an upper bound by the
+    shorter form.  Returns its operations, SFU operations, cycles and
+    opcodes, the largest over the body's pairs of steps."""
+    parsed = [(_opcode(ins), *defs_uses(ins)) for _, ins in body]
+    writers = []
+    for i, (op, _, _) in enumerate(parsed):
+        if op.startswith("STG"):
+            reg = _REG.findall(body[i][1])[-1]
+            writers.append(max((j for j in range(i) if reg in parsed[j][1]),
+                               default=None))
+    worst = None
+    for w0, w1 in zip(writers, writers[1:]):
+        if w0 is None or w1 is None or w1 <= w0:
+            continue
+        best = {r: (0.0, 0, 0, ()) for r in parsed[w0][1]}
+        for j in range(w0 + 1, w1 + 1):
+            op, defs, uses = parsed[j]
+            srcs = [best[r] for r in uses if r in best]
+            for r in defs:
+                best.pop(r, None)
+            if srcs:
+                cyc, n, sfu, path = max(srcs)
+                val = (cyc + _cycles(op, lat), n + 1,
+                       sfu + op.startswith("MUFU"), path + (op,))
+                for r in defs:
+                    best[r] = val
+        ends = [best[r] for r in parsed[w1][1] if r in best]
+        if ends and (worst is None or max(ends) > worst):
+            worst = max(ends)
+    if worst is None:
+        return {}
+    return {"ops": worst[1], "sfu": worst[2], "cycles": worst[0],
+            "path": list(worst[3])}
+
+
+def steady_loop(code):
+    """The sLSTM kernel's steady token loop: of the loops that store an
+    ``h`` (``STG``), the one with the most token steps, then the fewest
+    branches.  Returns its body, or None."""
+    best, key = None, None
+    for head, tail in loops(code):
+        body = [(a, s) for a, s in code if head <= a <= tail]
+        steps = sum(_opcode(s).startswith("STG") for _, s in body)
+        branches = sum(_target(s) is not None for _, s in body)
+        if steps and (key is None or (steps, -branches) > key):
+            best, key = body, (steps, -branches)
+    return best
+
+
+def slstm_chain(tree: pathlib.Path, outdir: pathlib.Path, lat: dict) -> dict:
+    """The h -> h path of most cycles of ``tree``'s sLSTM kernel, in its
+    steady loop, at the latencies ``lat`` (:func:`latencies`), and the
+    ns a token step it takes at the measured clock: the chain floor.  Of
+    the kernel's instances (with and without the L2 prefetch), the
+    longer path."""
+    src = tree / "src" / "repro_torch" / "kernels" / "csrc" / "slstm.cu"
+    cubin = outdir / "chain_slstm.cubin"
+    compile_cubin(src, cubin)
+    chain = max((h_chain(steady_loop(code), lat)
+                 for code in sass(cubin).values()),
+                key=lambda c: c["cycles"])
+    chain["ns_per_step"] = 1e3 * chain["cycles"] / lat["clock_mhz"]
+    return chain
+
+
+def census(tree: pathlib.Path, label: str, outdir: pathlib.Path,
+           sources=SOURCES, lat=None) -> dict:
     rec = {}
-    for name in SOURCES:
+    for name in sources:
         src = tree / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
         cubin = outdir / f"{label}_{name}.cubin"
         res = resources(compile_cubin(src, cubin))
@@ -216,9 +342,18 @@ def census(tree: pathlib.Path, label: str, outdir: pathlib.Path) -> dict:
             for head, tail in loops(code):
                 body = [(a, s) for a, s in code if head <= a <= tail]
                 path = fast_path(code, head, tail)
-                entry["loops"].append({"head": hex(head), "tail": hex(tail),
-                                       "body": counts(body),
-                                       "fast_path": counts(path)})
+                lp = {"head": hex(head), "tail": hex(tail),
+                      "body": counts(body), "fast_path": counts(path)}
+                steps = sum(_opcode(s).startswith("STG") for _, s in body)
+                if name == "slstm" and steps:
+                    # One h store a token: counts per token step.
+                    lp["steps"] = steps
+                    lp["fast_path_per_step"] = {
+                        c: v / steps for c, v in lp["fast_path"].items()}
+                    lp["h_chain"] = h_chain(body)
+                    if lat is not None:
+                        lp["h_chain_cycles"] = h_chain(body, lat)
+                entry["loops"].append(lp)
                 listing.append(f"// loop {hex(head)}..{hex(tail)}")
                 listing += [f"/*{a:04x}*/ {s}" for a, s in body]
             rec[f"{name}:{_short(fn)}"] = entry
@@ -229,18 +364,185 @@ def census(tree: pathlib.Path, label: str, outdir: pathlib.Path) -> dict:
             for lp in entry["loops"]:
                 print(f"    loop {lp['head']}..{lp['tail']}: body "
                       f"{lp['body']}; fast path {lp['fast_path']}")
+                if "steps" in lp:
+                    per = {c: round(v, 3)
+                           for c, v in lp["fast_path_per_step"].items()}
+                    print(f"      {lp['steps']} token steps; per step {per}"
+                          f"; h -> h path {lp['h_chain']}")
+                    if "h_chain_cycles" in lp:
+                        print(f"      h -> h path of most cycles "
+                              f"{lp['h_chain_cycles']}")
     return rec
 
 
-def _load(tree: pathlib.Path, name: str, outdir: pathlib.Path, label: str):
-    src = tree / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
-    so = outdir / f"{label}_lib{name}.so"
+def _shared_lib(src: pathlib.Path, so: pathlib.Path) -> ctypes.CDLL:
     res = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
                           str(so), str(src)], capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}"
                            f"{res.stderr}")
     return ctypes.CDLL(str(so))
+
+
+def _load(tree: pathlib.Path, name: str, outdir: pathlib.Path, label: str):
+    src = tree / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
+    return _shared_lib(src, outdir / f"{label}_lib{name}.so")
+
+
+def latencies(outdir: pathlib.Path) -> dict:
+    """Cycles per dependent FP32 operation and per SFU function, and the SM
+    clock in MHz, from ``tools/latency_probe.cu`` on card 0."""
+    import torch
+
+    src = _ROOT / "tools" / "latency_probe.cu"
+    cubin = outdir / "latency_probe.cubin"
+    compile_cubin(src, cubin)
+    for fn, code in sass(cubin).items():
+        print(f"latency probe SASS: {counts(code)} "
+              f"({sum(_opcode(s).startswith('MUFU') for _, s in code)} "
+              f"MUFU)")
+    fn = _shared_lib(src, outdir / "liblatency_probe.so").latency_probe
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 2, ctypes.c_int
+    dev = torch.device("cuda", 0)
+    out = torch.zeros(9, dtype=torch.int64, device=dev)
+    for _ in range(2):              # the first run warms the clocks
+        rc = fn(out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"latency probe launch failed: {rc}")
+        torch.cuda.synchronize()
+    v = [int(x) for x in out.cpu()]
+    n = v[7]
+    ex2 = v[2] / n
+    lat = {"FP32": v[0] / n, "FADD": v[1] / n, "EX2": ex2,
+           "RCP": (v[3] - v[1]) / n, "LG2": v[4] / n - ex2,
+           "clock_mhz": 1e3 * v[5] / v[6]}
+    lat["MUFU"] = max(lat["EX2"], lat["RCP"], lat["LG2"])
+    print(f"latencies (cycles): {lat}")
+    return lat
+
+
+SLSTM_SHAPES = ((1, 1), (4, 1), (1, 512), (8, 512), (8, 2048))   # (B, S)
+SLSTM_DI = 1536          # xlstm-125m's d_inner
+SLSTM_TOL = 2e-4         # rtol = atol against the plain version
+
+
+def device_ms(fn, inner: int, reps: int) -> float:
+    """ms per call of ``fn`` on the device alone: the median of ``reps``
+    CUDA-event timings of ``inner`` calls enqueued while the card spins
+    (``torch.cuda._sleep``), the spin doubled until the host finished
+    enqueueing before the card reached the first event."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    spin, times = 4_000_000, []
+    while len(times) < reps:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        if a.query():
+            b.synchronize()
+            spin *= 2
+            if spin > 2**31:
+                raise RuntimeError("the host could not enqueue ahead of "
+                                   "the card")
+            continue
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times)
+
+
+def slstm_turns(trees: dict, outdir: pathlib.Path, reps: int) -> dict:
+    """Each tree's sLSTM kernel at SLSTM_DI and SLSTM_SHAPES from a fresh
+    state, in turns (the labels in order, then reversed): device ms per
+    launch and ns per token step over repeated launches, ms per launch
+    with the gates rewritten before each (median of ``reps`` single
+    launches, each queued behind a spin so that the events time the
+    kernel: the gates come from where the copy left them, not from the
+    last launch), and each output's largest |d| / (1
+    + |ref|) against the plain version (hidden and final state), which
+    must stay within SLSTM_TOL."""
+    import torch
+
+    from repro_torch.kernels.slstm_ref import (init_slstm_state,
+                                               slstm_recurrence_ref)
+
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for label, tree in trees.items():
+        fn = _load(tree, "slstm", outdir, label).slstm_launch
+        fn.argtypes, fn.restype = [P_] * 5 + [I_] * 3 + [P_], I_
+        fns[label] = fn
+    labels = list(trees)
+    order = labels + labels[::-1]
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    di = SLSTM_DI
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = torch.randn((4, di), generator=g, device=dev) / di ** 0.5
+    rec = {}
+    for B, S in SLSTM_SHAPES:
+        zifo = torch.randn((B, S, 4, di), generator=g, device=dev)
+        state = init_slstm_state(B, di, device=dev)
+        hs = torch.empty((B, S, di), device=dev)
+        final = torch.empty((4, B, di), device=dev)
+
+        def launch(label):
+            rc = fns[label](zifo.data_ptr(), r.data_ptr(), state.data_ptr(),
+                            hs.data_ptr(), final.data_ptr(), B, S, di,
+                            stream)
+            if rc:
+                raise RuntimeError(f"{label} slstm launch failed: {rc}")
+
+        want_hs, want = slstm_recurrence_ref(zifo, r, state)
+        err = {}
+        for label in labels:
+            launch(label)
+            torch.cuda.synchronize()
+            err[label] = max(float(((got - ref).abs() / (1 + ref.abs()))
+                                   .max())
+                             for got, ref in ((hs, want_hs), (final, want)))
+            if not err[label] <= SLSTM_TOL:
+                raise RuntimeError(f"{label} slstm B={B} S={S}: error "
+                                   f"{err[label]:.3e} over {SLSTM_TOL}")
+        inner = 50 if S == 1 else max(3, 4096 // (B * S))
+        t = [device_ms(lambda lb=lb: launch(lb), inner, reps)
+             for lb in order]
+        # Fresh gates, as the model's gate projection writes them just
+        # before the recurrence: zifo rewritten before each timed launch.
+        gates = zifo.clone()
+        fresh = []
+        for lb in order:
+            times = []
+            for _ in range(reps + 1):
+                zifo.copy_(gates)
+                torch.cuda._sleep(2_000_000)    # the launch queued behind a
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                launch(lb)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+            fresh.append(statistics.median(times[1:]))
+        key = f"B={B}/S={S}"
+        names = [f"{lb}{i}" for i, lb in enumerate(order)]
+        rec[key] = {"ms": dict(zip(names, t)),
+                    "ns_per_step": {n: 1e6 * ms / S
+                                    for n, ms in zip(names, t)},
+                    "fresh_ms": dict(zip(names, fresh)), "err": err}
+        print(f"slstm {key}: " + ", ".join(
+            f"{lb} {ms:.5f} ms ({1e6 * ms / S:.1f} ns a step)"
+            for lb, ms in zip(order, t)) + "; fresh gates " + ", ".join(
+            f"{lb} {ms:.5f}" for lb, ms in zip(order, fresh)) +
+            " ms; error " + ", ".join(
+            f"{lb} {e:.2e}" for lb, e in err.items()), flush=True)
+        del zifo, gates, hs, want_hs
+    return rec
 
 
 def turns(trees: dict, outdir: pathlib.Path, reps: int) -> dict:
@@ -369,14 +671,15 @@ def main() -> int:
     ap.add_argument("--out", type=pathlib.Path,
                     default=_ROOT / "build" / "census")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--only", nargs="+", choices=SOURCES, default=SOURCES)
     args = ap.parse_args()
     args.out.mkdir(parents=True, exist_ok=True)
     trees = {"change": _ROOT}
     if args.parent is not None:
         trees = {"parent": args.parent.resolve(), "change": _ROOT}
-    rec = {"census": {lb: census(t, lb, args.out) for lb, t in trees.items()}}
     import torch
 
+    rec, lat = {}, None
     if torch.cuda.is_available():
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -384,7 +687,15 @@ def main() -> int:
             check=True).stdout.strip().splitlines()[0]
         print(card)
         rec["card"] = card
-        rec.update(turns(trees, args.out, args.reps))
+        if "slstm" in args.only:
+            lat = rec["latencies"] = latencies(args.out)
+    rec["census"] = {lb: census(t, lb, args.out, args.only, lat)
+                     for lb, t in trees.items()}
+    if torch.cuda.is_available():
+        if {"backproject", "quant"} <= set(args.only):
+            rec.update(turns(trees, args.out, args.reps))
+        if "slstm" in args.only:
+            rec["slstm"] = slstm_turns(trees, args.out, args.reps)
     (args.out / "census.json").write_text(json.dumps(rec, indent=1))
     print(json.dumps({k: v for k, v in rec.items() if k != "census"}))
     return 0
