@@ -71,9 +71,9 @@
 // costs more than its depth saves).  Where zifo outgrows the L2
 // (kPrefetchFromBytes), the launch takes the instance that also
 // prefetches the gates kPrefetch tokens beyond into the L2.  The steady
-// loop runs whole pairs of chunks with no bounds test; the last tokens
-// run through the tested loop; a launch at S = 1 (a decode step) takes a
-// short path of its own.
+// loop runs whole pairs of chunks with no bounds test; the last tokens,
+// and the whole of a launch at S = 1 (a decode step), run through the
+// tested loop.
 
 #include <cuda_runtime.h>
 
@@ -227,19 +227,8 @@ __global__ void slstm_kernel(const float* __restrict__ zifo,
   const float* base = zifo + static_cast<size_t>(b) * S * 4 * di + j;
   float* out = hs + static_cast<size_t>(b) * S * di + j;
   float g0[kAhead][4], g1[kAhead][4];
+  load_gates<true, false>(g0, base, 0, S, di);
   int t0 = 0;
-  if (S == 1) {
-    // A decode step: one token, and none of the look-ahead's code.
-    float g[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      g[q] = __ldcs(base + static_cast<size_t>(q) * di);
-    cell.step(g);
-    __stcs(out, cell.h);
-    t0 = 1;
-  } else {
-    load_gates<true, false>(g0, base, 0, S, di);
-  }
   // Steady state: every token of this pair of chunks and of the next
   // chunk lies below S.
   for (; t0 + 3 * kAhead <= S; t0 += 2 * kAhead) {

@@ -14,8 +14,8 @@ with round-to-nearest intrinsics in the plain version's order.  The row
 encoder and the row gather are held bitwise (the gather to
 ``F.embedding`` too, on in-range ids).  The sLSTM recurrence is held to
 its plain version at rtol = atol = 2e-4, the reference's own kernel
-tolerance (``tests/test_kernel_slstm.py``): ``expf``/``tanhf``/``log1pf``
-are not bitwise PyTorch's.
+tolerance (``tests/test_kernel_slstm.py``): its gate functions come from
+the special-function unit, not bitwise PyTorch's.
 """
 
 import numpy as np
@@ -586,6 +586,40 @@ def test_slstm_kernel_extreme_gates(dev, fresh):
         state[1] = state[1].abs() + 1.0
     hs, final = _slstm_against_plain(dev, zifo, r, state)
     assert bool(torch.isfinite(hs).all() and torch.isfinite(final).all())
+
+
+@pytest.mark.parametrize("fresh", [True, False])
+def test_slstm_kernel_chained_decode_steps(dev, fresh):
+    """Row 10 as the served decode runs it: 256 launches at S = 1, B = 4,
+    di = 1536, each from the state the last one returned (the kernel
+    carries m in base-2 units and converts it at every launch), against
+    the plain recurrence chained the same way: every step's h and the
+    final state within rtol = atol = 2e-4."""
+    from repro_torch.kernels.slstm_ops import slstm_recurrence
+    from repro_torch.kernels.slstm_ref import (init_slstm_state,
+                                               slstm_recurrence_ref)
+
+    B, steps, di = 4, 256, 1536
+    g = torch.Generator(device=dev).manual_seed(256)
+    zifo = torch.randn((B, steps, 4, di), generator=g, device=dev)
+    r = torch.randn((4, di), generator=g, device=dev) / di ** 0.5
+    if fresh:
+        state = init_slstm_state(B, di, device=dev)
+    else:
+        state = torch.randn((4, B, di), generator=g, device=dev)
+        state[1] = state[1].abs() + 1.0
+    got, want, got_hs, want_hs = state, state, [], []
+    before = LAUNCHES["slstm"]
+    for t in range(steps):
+        h, got = slstm_recurrence(zifo[:, t:t + 1].contiguous(), r, got)
+        got_hs.append(h)
+        h, want = slstm_recurrence_ref(zifo[:, t:t + 1], r, want)
+        want_hs.append(h)
+    torch.cuda.synchronize()
+    assert LAUNCHES["slstm"] == before + steps
+    torch.testing.assert_close(torch.cat(got_hs, 1), torch.cat(want_hs, 1),
+                               rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
 def _tiny_xlstm(impl):

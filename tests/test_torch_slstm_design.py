@@ -199,6 +199,27 @@ def test_emulation_with_sfu_errors_within_tolerance(fresh, shift, mode):
 
 
 @pytest.mark.parametrize("mode", ["random", "up", "down"])
+@pytest.mark.parametrize("fresh", [True, False])
+def test_chained_single_token_launches_within_tolerance(fresh, mode):
+    """A served decode: 256 launches at S = 1, each from the state the
+    last one returned, so ``m`` goes into base-2 units and back at every
+    step; with the approximations' errors injected, every ``h`` and the
+    final state stay within rtol = atol = 2e-4 of the plain recurrence
+    chained the same way."""
+    zifo, r, state = _problem(20 + fresh, 4, 256, 128, fresh=fresh)
+    sfu = Sfu(mode, seed=9)
+    got, want, got_hs, want_hs = state, state, [], []
+    for t in range(zifo.shape[1]):
+        h, got = emulate(zifo[:, t:t + 1], r, got, sfu)
+        got_hs.append(h)
+        h, want = slstm_recurrence_ref(zifo[:, t:t + 1], r, want)
+        want_hs.append(h)
+    torch.testing.assert_close(torch.cat(got_hs, 1), torch.cat(want_hs, 1),
+                               **TOL)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("mode", ["random", "up", "down"])
 def test_emulation_at_extreme_gates(mode):
     """Pre-activations up to |30|: tanh and sigmoid saturate and
     ``2^-|x|`` flushes to 0; still within the tolerance, and finite."""

@@ -312,17 +312,15 @@ def steady_loop(code):
     return best
 
 
-def slstm_chain(tree: pathlib.Path, outdir: pathlib.Path, lat: dict) -> dict:
-    """The h -> h path of most cycles of ``tree``'s sLSTM kernel, in its
+def slstm_chain(binary: pathlib.Path, lat: dict) -> dict:
+    """The h -> h path of most cycles of the sLSTM kernel in ``binary`` (a
+    cubin, or the shared library the port builds and loads), in its
     steady loop, at the latencies ``lat`` (:func:`latencies`), and the
     ns a token step it takes at the measured clock: the chain floor.  Of
     the kernel's instances (with and without the L2 prefetch), the
     longer path."""
-    src = tree / "src" / "repro_torch" / "kernels" / "csrc" / "slstm.cu"
-    cubin = outdir / "chain_slstm.cubin"
-    compile_cubin(src, cubin)
     chain = max((h_chain(steady_loop(code), lat)
-                 for code in sass(cubin).values()),
+                 for code in sass(binary).values()),
                 key=lambda c: c["cycles"])
     chain["ns_per_step"] = 1e3 * chain["cycles"] / lat["clock_mhz"]
     return chain
