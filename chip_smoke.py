@@ -22,7 +22,17 @@ seeded weights) through ``ServingEngine`` with ``gather_impl="take"``
 and ``"onehot"`` (the greedy tokens must agree), a prefill in bfloat16
 and in float32 with its sLSTM launches held to the plain recurrence on
 their inputs and its logits and whole cache to the same model on the
-plain versions, and one 8 x 2048 forward.  Any
+plain versions, and one 8 x 2048 forward.  Then chatglm3-6b (dense GQA
+attention, RoPE 2d, the SwiGLU MLP) at its published widths in bfloat16
+from a seed: the row gather at its 65024 x 4096 table, 8 greedy requests
+served with ``take`` and ``onehot`` (equal tokens, row 9 launched once a
+prefill and decode call) beside the weight-bytes floor of a decode call
+and the profiled device time of one, a prefill bitwise equal under both
+gathers, a 2 x 2048 forward on the chunked attention path; the same
+widths cut to 4 layers in float32 for three checks that each see a
+planted fault (decode against forward, chunked against dense attention,
+the int8 KV cache within the reference's bounds); and whisper-small and
+qwen2-vl-2b at full width (prefill and decode, finite logits).  Any
 failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the JSON record of
 every kernel of the path.  Needs one CUDA card; imports nothing of JAX
@@ -140,6 +150,25 @@ LM_LOGIT_TOL = 2e-2
 # recurrence with h off by the factor 1 + LM_CACHE_FAULT has to break it.
 LM_CACHE_TOL = {"float32": SLSTM_TOL, "bfloat16": 0.2}
 LM_CACHE_FAULT = {"float32": 1e-3, "bfloat16": 0.1}
+
+# Phase 12: chatglm3-6b at its published widths (dense GQA, RoPE 2d), and
+# the other attention families.
+GLM_ARCH = "chatglm3-6b"
+GLM_GATHER_NS = (4, 512)            # phase 9 at its table: a decode call, a prompt
+GLM_FORWARD = (2, 2048)             # > attn_chunk: the chunked path
+GLM_DEPTH = 4                       # 12c: a depth cut, float32
+GLM_DECODE_N = 300                  # 12c: the prompt before the decode
+# 12c, max |d| / (1 + |ref|) of the logits: a decode step against forward
+# at its position (float32 throughout), and the chunked path against the
+# dense, the reference's own 2e-3 (tests/test_gather_and_layers.py).
+GLM_DECODE_TOL = 1e-3
+GLM_CHUNK_TOL = 2e-3
+# 12c, the int8 KV cache against the model's own after a prefill and two
+# decode steps: tests/test_kv_int8.py's bounds, over KV_INT8_B rows.
+KV_INT8_REL, KV_INT8_AGREE, KV_INT8_B = 0.15, 0.5, 8
+WHISPER_FRAMES = 1000               # <= attn_chunk: dense (1500 raises)
+VL_GRID, VL_TEXT = 16, 64           # a 16 x 16 patch grid, 64 text tokens
+LM_DECODE_STEPS = 4                 # 12d
 
 
 def fail(msg: str) -> None:
@@ -1220,13 +1249,14 @@ def bytes_bound(nbytes: float, flops: float = 0.0):
                                        else "operations")
 
 
-def check_gather(cfg, dev):
+def check_gather(cfg, dev, dtypes=(torch.bfloat16, torch.float32),
+                 ns=GATHER_NS):
     """Phase 9: the row gather (kernel row 9) against its plain version at
-    V = vocab, D = d_model, in bf16 and f32, at N = 4, 512, 8192 with ids
-    -1 and V mixed in: max |d| = 0, and equal to F.embedding on the
-    in-range ids.  Times per launch, the plain version's, F.embedding's
-    (on the clamped ids), on cold rows, and the bound (each row read and written once,
-    plus the ids)."""
+    V = vocab, D = d_model, in ``dtypes`` at N in ``ns`` with ids -1 and
+    V mixed in: max |d| = 0, and equal to F.embedding on the in-range
+    ids.  Times per launch, the plain version's, F.embedding's (on the
+    clamped ids), on cold rows, and the bound (each row read and written
+    once, plus the ids)."""
     from repro_torch.kernels.gather import launch_onehot_gather
     from repro_torch.kernels.gather_kernel_ops import cuda_onehot_gather
     from repro_torch.kernels.gather_ref import gather_ref
@@ -1234,10 +1264,10 @@ def check_gather(cfg, dev):
     V, D = cfg.vocab, cfg.d_model
     g = torch.Generator(device=dev).manual_seed(SEED)
     res = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         table = torch.randn((V, D), generator=g, device=dev).to(dtype)
         name = str(dtype).split(".")[-1]
-        for N in GATHER_NS:
+        for N in ns:
             ids = torch.randint(0, V, (N,), generator=g, device=dev)
             ids[0], ids[1] = -1, V
             out = cuda_onehot_gather(table, ids)
@@ -1401,54 +1431,47 @@ def check_slstm(cfg, dev):
     return res, chain
 
 
-def serve_lm(cfg, dev):
-    """Phase 11: the model served at full width (the config's widths,
-    bfloat16, seeded weights on the card): LM_REQUESTS prompts of
-    LM_PROMPT tokens, LM_MAX_TOKENS each, greedy and temperature=0.8 in
-    turn, through ServingEngine(n_slots=LM_SLOTS, max_len=LM_MAX_LEN)
-    with gather_impl="take" and "onehot"; counts zeroed before each run
-    and read after; the greedy tokens of both runs equal.  Then one
-    prompt's prefill in bfloat16 and in float32 (:func:`check_prefill`),
-    and a forward of LM_FORWARD tokens."""
+def served_runs(cfg, model, prompts, temps, dev) -> dict:
+    """``prompts`` served at ``temps`` (one a request), LM_MAX_TOKENS
+    each, through ServingEngine(n_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    with gather_impl="take" and "onehot", after an untimed warm-up of
+    both; counts zeroed before each run and read after.  Row 9 must run
+    once a prefill and decode call under onehot and never under take,
+    row 10 once a call in every sLSTM layer, and no other kernel; the
+    greedy requests' tokens must agree.  Returns the two runs."""
     import repro_torch.kernels.gather_kernel_ops as gops
     import repro_torch.kernels.slstm_ops as sops
     import repro_torch.serving.engine as engine_mod
     from repro_torch.kernels import LAUNCHES
-    from repro_torch.models import forward, init_model
     from repro_torch.serving import Request, ServingEngine
 
-    t0 = time.perf_counter()
-    model = init_model(cfg, seed=SEED, device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"  {cfg.name}: {n_params / 1e6:.2f} M parameters "
-          f"({cfg.param_dtype}), drawn on the card in "
-          f"{time.perf_counter() - t0:.2f} s; {cfg.n_layers} layers "
-          f"{cfg.block_pattern}, d_model {cfg.d_model}, d_inner "
-          f"{cfg.d_inner}, vocab {cfg.vocab}")
-    rng = np.random.default_rng(SEED)
-    lengths = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lengths]
     n_slstm = sum(k == "slstm" for k in cfg.block_pattern) * cfg.n_periods
+    n_tokens = sum(len(p) for p in prompts)
     # Warm-up, untimed: each prompt length's first prefill and the first
     # decode calls pay one-time library costs (kernel loads, matmul
     # heuristics) that would land on whichever run came first.
+    warm = {}
     for impl in ("take", "onehot"):
         eng = ServingEngine(dataclasses.replace(cfg, gather_impl=impl),
                             model, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
                             seed=SEED, device=dev)
         for i, p in enumerate(prompts):
             eng.submit(Request(rid=i, prompt=p, max_tokens=2))
+        t0 = time.perf_counter()
         eng.run_until_done()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        warm[impl] = time.perf_counter() - t0
+    print(f"  warm-up, the same prompts at 2 tokens each (first calls "
+          f"included): " + ", ".join(f"{i} {w:.3f} s"
+                                     for i, w in warm.items()))
     runs = {}
     for impl in ("take", "onehot"):
         cfg_i = dataclasses.replace(cfg, gather_impl=impl)
         eng = ServingEngine(cfg_i, model, n_slots=LM_SLOTS,
                             max_len=LM_MAX_LEN, seed=SEED, device=dev)
         reqs = [Request(rid=i, prompt=p, max_tokens=LM_MAX_TOKENS,
-                        temperature=0.8 if i % 2 else 0.0)
-                for i, p in enumerate(prompts)]
+                        temperature=t)
+                for i, (p, t) in enumerate(zip(prompts, temps))]
         for r in reqs:
             eng.submit(r)
         timers = {n: LaunchTimer(m, f) for n, (m, f) in {
@@ -1470,7 +1493,7 @@ def serve_lm(cfg, dev):
         ms = {n: t.ms() for n, t in timers.items()}
         n_out = sum(len(r.out_tokens) for r in reqs)
         n_pre, n_dec = len(ms["prefill"]), len(ms["decode"])
-        print(f"  served {impl}: {LM_REQUESTS} requests in {wall:.3f} s, "
+        print(f"  served {impl}: {len(reqs)} requests in {wall:.3f} s, "
               f"{ticks} ticks, {n_dec} decode calls, {n_out} tokens = "
               f"{n_out / wall:.1f} tokens/s; launches "
               f"{dict((k, v) for k, v in launches.items() if v)}")
@@ -1486,10 +1509,10 @@ def serve_lm(cfg, dev):
                 + launches["onehot_gather"]:
             fail(f"served {impl}: launches {launches} for {n_pre} prefills "
                  f"and {n_dec} decode calls")
-        pre_ms = sum(ms["prefill"]) / int(lengths.sum())
+        pre_ms = sum(ms["prefill"]) / n_tokens
         tick_ms = sum(ms["decode"]) / ticks
         print(f"    prefill {pre_ms:.4f} ms per prompt token "
-              f"({int(lengths.sum())} tokens, {n_pre} prompts); decode "
+              f"({n_tokens} tokens, {n_pre} prompts); decode "
               f"{statistics.median(ms['decode']):.3f} ms per call (median, "
               f"{LM_SLOTS} slots), {tick_ms:.3f} ms per tick")
         for name in ("slstm", "onehot_gather"):
@@ -1497,8 +1520,10 @@ def serve_lm(cfg, dev):
                 print(f"    {name}: {len(ms[name])} launches, median "
                       f"{statistics.median(ms[name]):.5f} ms, total "
                       f"{sum(ms[name]):.2f} ms")
-        runs[impl] = {"wall_s": wall, "ticks": ticks, "decode_calls": n_dec,
-                      "tokens": n_out, "tokens_per_s": n_out / wall,
+        runs[impl] = {"wall_s": wall, "warmup_s": warm[impl],
+                      "ticks": ticks, "decode_calls": n_dec,
+                      "prefills": n_pre, "tokens": n_out,
+                      "tokens_per_s": n_out / wall,
                       "prefill_ms_per_token": pre_ms,
                       "decode_ms_per_call": statistics.median(ms["decode"]),
                       "decode_ms_per_tick": tick_ms,
@@ -1508,11 +1533,46 @@ def serve_lm(cfg, dev):
                           ("slstm", "onehot_gather") if ms[n]},
                       "out": [r.out_tokens for r in reqs]}
         del eng
-    greedy = [runs[i]["out"][0::2] for i in ("take", "onehot")]
+    greedy = [[o for o, t in zip(runs[i]["out"], temps) if t == 0.0]
+              for i in ("take", "onehot")]
     if greedy[0] != greedy[1]:
         fail("take and onehot served different greedy tokens")
     print(f"  take and onehot served the same greedy tokens "
           f"({len(greedy[0])} requests)")
+    return runs
+
+
+def lm_prompts(cfg) -> list:
+    """LM_REQUESTS prompts of LM_PROMPT tokens, from SEED."""
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    return [rng.integers(0, cfg.vocab, int(n)) for n in lengths]
+
+
+def serve_lm(cfg, dev):
+    """Phase 11: the model served at full width (the config's widths,
+    bfloat16, seeded weights on the card): LM_REQUESTS prompts of
+    LM_PROMPT tokens, greedy and temperature=0.8 in turn
+    (:func:`served_runs`).  Then one prompt's prefill in bfloat16 and in
+    float32 (:func:`check_prefill`), and a forward of LM_FORWARD
+    tokens."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import forward, init_model
+
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {cfg.name}: {n_params / 1e6:.2f} M parameters "
+          f"({cfg.param_dtype}), drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; {cfg.n_layers} layers "
+          f"{cfg.block_pattern}, d_model {cfg.d_model}, d_inner "
+          f"{cfg.d_inner}, vocab {cfg.vocab}")
+    prompts = lm_prompts(cfg)
+    n_slstm = sum(k == "slstm" for k in cfg.block_pattern) * cfg.n_periods
+    runs = served_runs(cfg, model, prompts,
+                       [0.8 if i % 2 else 0.0 for i in range(len(prompts))],
+                       dev)
 
     toks = torch.as_tensor(prompts[0], device=dev)[None]
     pre = {}
@@ -1630,25 +1690,379 @@ def check_prefill(model, cfg, toks, n_slstm: int) -> dict:
             "fault": LM_CACHE_FAULT[dtype], "fault_cache_err": fault}
 
 
-def run_lm(cfg, dev, card: str) -> list:
-    """Phases 9-11 on ``cfg``; prints the details and returns the
-    ``kernels`` entries of rows 9 and 10."""
+# ----------------------------------------------------------------------
+# chatglm3-6b and the attention families (phase 12)
+# ----------------------------------------------------------------------
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |d| / (1 + |ref|)."""
+    return float(((got.float() - want.float()).abs()
+                  / (1 + want.float().abs())).max())
+
+
+def seeded_ints(high: int, shape, dev, seed: int) -> torch.Tensor:
+    return torch.randint(0, high, shape, device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(seed))
+
+
+def seeded_normal(shape, dev, seed: int) -> torch.Tensor:
+    return torch.randn(shape, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+
+
+def profiled_call(fn, calls: int = 3) -> dict:
+    """``fn`` under ``torch.profiler``, per call: the host's wall clock to
+    a synchronise, the kernels' summed device time (one stream, so their
+    busy time; None where the profiler recorded none), the count of
+    kernels, and the kernels that took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    us = sum(dev_us(e) for e in kernels)
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    return {"wall_ms": wall,
+            "device_ms": us / 1e3 / calls if us else None,
+            "kernels": sum(e.count for e in kernels) / calls,
+            "top": [(e.key[:60], dev_us(e) / 1e3 / calls, e.count / calls)
+                    for e in top]}
+
+
+def serve_glm(cfg, dev) -> dict:
+    """Phase 12a, 12b and 12e: the model at its published widths in
+    bfloat16 from SEED, served greedily (:func:`served_runs`, 8 requests
+    of LM_PROMPT tokens, LM_MAX_TOKENS each, take and onehot) beside the
+    weight-bytes floor of a decode call; the card's own time of a decode
+    call; one prompt's prefill bitwise equal under take and onehot
+    (logits and every cache leaf); a timed forward of GLM_FORWARD tokens
+    on the chunked path."""
+    import repro_torch.models.attention as attn
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_model, prefill)
+
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    floor_ms = 1e3 * wbytes / PEAK_BYTES_S
+    print(f"  {cfg.name}: {n_params / 1e9:.4f} B parameters "
+          f"({cfg.param_dtype}, {wbytes / 1e9:.2f} GB), drawn on the card "
+          f"in {time.perf_counter() - t0:.2f} s; {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV "
+          f"heads, hd {cfg.hd}, rope {cfg.rope}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}; a decode call reads the weights once: floor "
+          f"{floor_ms:.3f} ms at {PEAK_BYTES_S / 1e12:.2f} TB/s")
+    print("phase 12a: served, greedy")
+    prompts = lm_prompts(cfg)
+    runs = served_runs(cfg, model, prompts, [0.0] * len(prompts), dev)
+    for impl, r in runs.items():
+        print(f"    {impl}: {r['decode_ms_per_call']:.3f} ms per decode call "
+              f"= {r['decode_ms_per_call'] / floor_ms:.2f}x the "
+              f"{floor_ms:.3f} ms weight-bytes floor")
+    cache = init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+    toks = seeded_ints(cfg.vocab, (LM_SLOTS, 1), dev, SEED)
+    prof = profiled_call(
+        lambda: decode_step(model, cfg, cache, toks, LM_MAX_LEN // 2))
+    dev_ms, wall_ms = prof["device_ms"], prof["wall_ms"]
+    busy = ("device time not measured" if dev_ms is None else
+            f"{dev_ms:.3f} ms on the device ({dev_ms / floor_ms:.2f}x the "
+            f"floor), busy {dev_ms / wall_ms:.1%} of the call")
+    print(f"  a decode call of {LM_SLOTS} slots at index {LM_MAX_LEN // 2}, "
+          f"profiled: {wall_ms:.3f} ms wall, {busy}, "
+          f"{prof['kernels']:.0f} kernels")
+    for name, ms, count in prof["top"]:
+        print(f"    {ms:.4f} ms in {count:.0f} x {name}")
+    del cache
+
+    print("phase 12b: one prompt's prefill, take against onehot")
+    toks = torch.as_tensor(prompts[0], device=dev)[None]
+    out = {impl: prefill(model, dataclasses.replace(cfg, gather_impl=impl),
+                         {"tokens": toks}, LM_MAX_LEN)
+           for impl in ("take", "onehot")}
+    torch.cuda.synchronize()
+    (lt, ct), (lo, co) = out["take"], out["onehot"]
+    leaves = [(n, k) for n in ct["blocks"] for k in ct["blocks"][n]]
+    same = torch.equal(lt, lo) and all(
+        torch.equal(ct["blocks"][n][k], co["blocks"][n][k])
+        for n, k in leaves)
+    print(f"  {toks.shape[1]} tokens: logits and {len(leaves)} cache leaves "
+          f"{tuple(ct['blocks']['b0']['k'].shape)} bitwise equal: {same}")
+    if not same:
+        fail("the take and onehot prefills differ")
+    del out, ct, co
+
+    print(f"phase 12e: a forward of {GLM_FORWARD[0]}x{GLM_FORWARD[1]} "
+          f"tokens (attn_chunk {cfg.attn_chunk}: the chunked path)")
+    B, S = GLM_FORWARD
+    toks = seeded_ints(cfg.vocab, (B, S), dev, SEED)
+    chunked = []
+    orig = attn._chunked_attention
+
+    def counted(*a, **k):
+        chunked.append(1)
+        return orig(*a, **k)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with patched(attn, "_chunked_attention", counted):
+        t0 = time.perf_counter()
+        logits, _ = forward(model, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    if logits.shape != (B, S, cfg.vocab) or len(chunked) != cfg.n_layers \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"forward of {B}x{S}: {tuple(logits.shape)}, "
+             f"{len(chunked)} chunked layers, or non-finite logits")
+    print(f"  {fwd_s:.3f} s, {B * S / fwd_s:.1f} tokens/s, {len(chunked)} "
+          f"layers on the chunked path; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del logits, model
+    torch.cuda.empty_cache()
+    return {"n_params": n_params, "weight_bytes": wbytes,
+            "floor_ms": floor_ms, "runs": runs,
+            "decode_profiled": prof,
+            "prefill_bitwise": same, "forward_s": fwd_s}
+
+
+def check_depth_cut(cfg, dev) -> dict:
+    """Phase 12c: the model at its published widths cut to GLM_DEPTH
+    layers, in float32, three checks, each with a planted fault that must
+    break its bound in the same run: prefill then decode against forward
+    (GLM_DECODE_TOL; decoding one position late must break it), the
+    chunked path against the dense (GLM_CHUNK_TOL; skipping the last KV
+    block must break it), and the int8 KV cache against the model's own
+    (KV_INT8_REL and KV_INT8_AGREE; scales that drop the 1/127 must break
+    them)."""
+    import repro_torch.models.attention as attn
+    import repro_torch.models.blocks as blocks
+    from repro_torch.models import decode_step, forward, init_model, prefill
+
+    cut = dataclasses.replace(cfg, n_layers=GLM_DEPTH, param_dtype="float32")
+    model = init_model(cut, seed=SEED, device=dev)
+    print(f"  a depth cut: {GLM_DEPTH} of {cfg.n_layers} layers at full "
+          f"width, float32, {sum(p.numel() for p in model.parameters()) / 1e9:.3f}"
+          f" B parameters")
+    res = {}
+
+    n = GLM_DECODE_N
+    toks = seeded_ints(cut.vocab, (2, n + 1), dev, SEED + 1)
+    full, _ = forward(model, cut, {"tokens": toks})
+    _, cache = prefill(model, cut, {"tokens": toks[:, :n]}, LM_MAX_LEN)
+    errs = {}
+    for name, index in (("decode", n), ("one position late", n + 1)):
+        lg, _ = decode_step(model, cut, cache, toks[:, n:n + 1], index)
+        errs[name] = rel_err(lg[:, 0], full[:, n])
+    print(f"  1. prefill({n}) then decode_step(index={n}) against forward at "
+          f"position {n}: max |d|/(1+|ref|) {errs['decode']:.3e} (bound "
+          f"{GLM_DECODE_TOL}); decoded at index {n + 1}: "
+          f"{errs['one position late']:.3e}")
+    if not errs["decode"] <= GLM_DECODE_TOL < errs["one position late"]:
+        fail("decode against forward: the bound does not hold, or does not "
+             "see a decode one position late")
+    res["decode"] = errs
+    del full, cache
+
+    B, S = GLM_FORWARD
+    toks = seeded_ints(cut.vocab, (B, S), dev, SEED + 2)
+    dense_cfg = dataclasses.replace(cut, attn_chunk=0)
+    want, _ = forward(model, dense_cfg, {"tokens": toks})
+    got, _ = forward(model, cut, {"tokens": toks})
+    orig = attn._chunked_attention
+
+    def skip_last_block(q, k, v, causal, chunk, q_offset=0):
+        return orig(q, k[:, :-chunk], v[:, :-chunk], causal, chunk, q_offset)
+
+    with patched(attn, "_chunked_attention", skip_last_block):
+        bad, _ = forward(model, cut, {"tokens": toks})
+    errs = {"chunked": rel_err(got, want), "last block skipped":
+            rel_err(bad, want)}
+    print(f"  2. {B}x{S} forward, attn_chunk {cut.attn_chunk} (chunked) "
+          f"against 0 (dense): max |d|/(1+|ref|) {errs['chunked']:.3e} "
+          f"(bound {GLM_CHUNK_TOL}); with the last KV block skipped: "
+          f"{errs['last block skipped']:.3e}")
+    if not errs["chunked"] <= GLM_CHUNK_TOL < errs["last block skipped"]:
+        fail("chunked against dense: the bound does not hold, or does not "
+             "see a skipped KV block")
+    res["chunked"] = errs
+    del want, got, bad
+
+    q8 = dataclasses.replace(cut, kv_cache_dtype="int8")
+    toks = seeded_ints(cut.vocab, (KV_INT8_B, n + 2), dev, SEED + 3)
+    kv_quant = attn._kv_quant
+
+    def unscaled(t):
+        q, s = kv_quant(t)
+        return q, (s.float() * 127.0).to(s.dtype)
+
+    def last_logits(c):
+        _, cache = prefill(model, c, {"tokens": toks[:, :n]}, LM_MAX_LEN)
+        for i in range(2):
+            lg, cache = decode_step(model, c, cache, toks[:, n + i:n + i + 1],
+                                    n + i)
+        return lg[:, 0]
+
+    ref = last_logits(cut)
+    got = last_logits(q8)
+    with patched(attn, "_kv_quant", unscaled), \
+            patched(blocks, "_kv_quant", unscaled):
+        bad = last_logits(q8)
+    scale = float(ref.abs().max())
+    errs = {}
+    for name, lg in (("int8", got), ("scales without 1/127", bad)):
+        errs[name] = {"rel": float((lg - ref).abs().max()) / max(scale, 1e-6),
+                      "agree": float((lg.argmax(-1) == ref.argmax(-1))
+                                     .float().mean())}
+    print(f"  3. int8 KV cache against the model's own (float32) after a "
+          f"prefill of {n} and 2 decode steps, {KV_INT8_B} rows: rel "
+          f"{errs['int8']['rel']:.4f} (< {KV_INT8_REL}), argmax agreement "
+          f"{errs['int8']['agree']:.3f} (>= {KV_INT8_AGREE}); scales "
+          f"without 1/127: rel {errs['scales without 1/127']['rel']:.4f}, "
+          f"agreement {errs['scales without 1/127']['agree']:.3f}")
+    ok = errs["int8"]["rel"] < KV_INT8_REL \
+        and errs["int8"]["agree"] >= KV_INT8_AGREE
+    seen = not (errs["scales without 1/127"]["rel"] < KV_INT8_REL
+                and errs["scales without 1/127"]["agree"] >= KV_INT8_AGREE)
+    if not (ok and seen):
+        fail("the int8 cache: the bounds do not hold, or do not see scales "
+             "without 1/127")
+    res["int8"] = errs
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_family(cfg, dev, batch: dict, max_len: int, start: int) -> dict:
+    """Phase 12d: ``cfg`` at its published widths in bfloat16 from SEED:
+    a prefill of ``batch`` and LM_DECODE_STEPS decode steps from
+    position ``start``; finite logits of the right shape; times."""
+    from repro_torch.models import decode_step, init_model, prefill
+
+    model = init_model(cfg, seed=SEED, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    prefill(model, cfg, batch, max_len)           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, cfg, batch, max_len)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    B = batch["tokens"].shape[0]
+    outs, tok = [logits], logits[:, -1].argmax(-1)[:, None]
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE_STEPS):
+        logits, cache = decode_step(model, cfg, cache, tok, start + i)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        outs.append(logits)
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODE_STEPS
+    ok = all(o.shape == (B, 1, cfg.vocab) and bool(torch.isfinite(o).all())
+             for o in outs)
+    print(f"  {cfg.name}: {n_params / 1e9:.4f} B parameters; prefill "
+          f"{pre_s * 1e3:.2f} ms, decode {dec_ms:.3f} ms a step; logits "
+          f"{tuple(outs[0].shape)} finite: {ok}")
+    if not ok:
+        fail(f"{cfg.name}: logits of the wrong shape or not finite")
+    del model, cache, outs
+    torch.cuda.empty_cache()
+    return {"n_params": n_params, "prefill_ms": pre_s * 1e3,
+            "decode_ms_per_step": dec_ms}
+
+
+def run_families(dev) -> dict:
+    """Phase 12d: whisper-small (WHISPER_FRAMES frames, cross-attention;
+    1500 frames must raise, as in the reference) and qwen2-vl-2b (a
+    VL_GRID x VL_GRID patch grid and VL_TEXT text tokens, M-RoPE)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_model, prefill
+    from repro_torch.models.model import FRONTEND_DIM
+
+    res = {}
+    w = ARCHS["whisper-small"]
+    frames = seeded_normal((1, WHISPER_FRAMES, FRONTEND_DIM["audio"]), dev,
+                           SEED)
+    text = seeded_ints(w.vocab, (1, 32), dev, SEED)
+    res[w.name] = run_family(w, dev, {"tokens": text, "frames": frames}, 64,
+                             32)
+    one = dataclasses.replace(w, n_layers=1, n_enc_layers=1)
+    model = init_model(one, seed=SEED, device=dev)
+    try:
+        prefill(model, one, {"tokens": text, "frames": seeded_normal(
+            (1, 1500, FRONTEND_DIM["audio"]), dev, SEED)}, 64)
+    except AssertionError:
+        print("  whisper-small with 1500 frames raises, as the reference "
+              f"(1500 keys > attn_chunk {w.attn_chunk}, not a multiple)")
+    else:
+        fail("whisper-small with 1500 frames did not raise")
+    del model
+    q = ARCHS["qwen2-vl-2b"]
+    n_img = VL_GRID * VL_GRID
+    batch = {"tokens": seeded_ints(q.vocab, (1, VL_TEXT), dev, SEED),
+             "patches": seeded_normal((1, n_img, FRONTEND_DIM["vision"]),
+                                      dev, SEED)}
+    res[q.name] = run_family(q, dev, batch, n_img + VL_TEXT + 64,
+                             n_img + VL_TEXT)
+    return res
+
+
+def run_glm(cfg, dev, card: str) -> dict:
+    """Phase 12 on ``cfg`` (chatglm3-6b), whisper-small and qwen2-vl-2b."""
+    print(f"phase 12: {cfg.name} at full width")
+    glm = serve_glm(cfg, dev)
+    print(f"phase 12c: {cfg.name}, float32")
+    cut = check_depth_cut(cfg, dev)
+    print("phase 12d: whisper-small and qwen2-vl-2b at full width, bfloat16")
+    fam = run_families(dev)
+    print(json.dumps({"glm_detail": {
+        "card": card, **{k: v for k, v in glm.items() if k != "runs"},
+        "served": {i: {k_: v for k_, v in r.items() if k_ != "out"}
+                   for i, r in glm["runs"].items()},
+        "depth_cut": cut, "families": fam}}))
+    return glm
+
+
+def run_lm(cfg, glm_cfg, dev, card: str) -> list:
+    """Phases 9-11 on ``cfg`` (xlstm-125m), phase 9 also at ``glm_cfg``'s
+    table, and phase 12 on ``glm_cfg`` (chatglm3-6b); prints the details
+    and returns the ``kernels`` entries of rows 9 and 10."""
     print(f"phase 9: the row gather vs plain at V={cfg.vocab}, "
           f"D={cfg.d_model}")
     gat = check_gather(cfg, dev)
+    print(f"  and at {glm_cfg.name}'s table, V={glm_cfg.vocab}, "
+          f"D={glm_cfg.d_model}")
+    wide = check_gather(glm_cfg, dev, (torch.bfloat16,), GLM_GATHER_NS)
     print(f"phase 10: the sLSTM recurrence vs plain at di={cfg.d_inner}")
     rec, chain = check_slstm(cfg, dev)
     print(f"phase 11: {cfg.name} served at full width")
     lm = serve_lm(cfg, dev)
+    glm = run_glm(glm_cfg, dev, card)
     src = "src/repro_torch/kernels/csrc/"
     g4 = gat[("bfloat16", GATHER_NS[0])]
     s4 = rec[(LM_SLOTS, 1, 0.0)]
+    by_path = {c.name: m["runs"]["onehot"]["launches"].get(
+        "onehot_gather", 0) for c, m in ((cfg, lm), (glm_cfg, glm))}
     k = [{"name": "onehot_gather", "route": "cuda",
           "source": src + "gather.cu",
           "replaces": "src/repro/kernels/gather.py:36",
-          "launches": lm["runs"]["onehot"]["launches"].get(
-              "onehot_gather", 0),
-          "max_abs_err": max(v["err"] for v in gat.values()),
+          "launches": sum(by_path.values()),
+          "launches_by_path": by_path,
+          "max_abs_err": max(v["err"] for d in (gat, wide)
+                             for v in d.values()),
           "ms": g4["ms"], "plain_ms": g4["plain_ms"],
           "bound_ms": g4["bound_ms"], "bound_by": g4["bound_by"],
           "library_ms": g4["library_ms"],
@@ -1658,7 +2072,15 @@ def run_lm(cfg, dev, card: str) -> list:
                   "gap_ms": r["retime"]["gap_ms"],
                   "spread_ms": r["retime"]["spread_ms"],
                   "bound_ms": r["bound_ms"]}
-              for (d, n), r in gat.items() if n == GATHER_RETIME_N}},
+              for (d, n), r in gat.items() if n == GATHER_RETIME_N},
+          f"V{glm_cfg.vocab}_D{glm_cfg.d_model}": {
+              f"{d}/N={n}": {k_: v for k_, v in r.items() if k_ != "retime"}
+              | ({"retime_kernel_ms": r["retime"]["kernel"]["median_ms"],
+                  "retime_library_ms": r["retime"]["F.embedding"][
+                      "median_ms"],
+                  "retime_spread_ms": r["retime"]["spread_ms"]}
+                 if "retime" in r else {})
+              for (d, n), r in wide.items()}},
          {"name": "slstm", "route": "cuda", "source": src + "slstm.cu",
           "replaces": "src/repro/kernels/slstm.py:34",
           "launches": lm["runs"]["take"]["launches"].get("slstm", 0),
@@ -1669,6 +2091,7 @@ def run_lm(cfg, dev, card: str) -> list:
     print(json.dumps({"lm_detail": {
         "card": card,
         "gather": {f"{d}/N={n}": v for (d, n), v in gat.items()},
+        "gather_wide": {f"{d}/N={n}": v for (d, n), v in wide.items()},
         "slstm": {f"B={b}/S={s}/f+{f:g}": v
                   for (b, s, f), v in rec.items()},
         "slstm_chain": chain,
@@ -1701,7 +2124,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     record = run(Geometry(), dev, card, build_s)
     from repro_torch.configs import ARCHS
-    record["kernels"] += run_lm(ARCHS[LM_ARCH], dev, card)
+    record["kernels"] += run_lm(ARCHS[LM_ARCH], ARCHS[GLM_ARCH], dev, card)
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ VLM backbone).  Architectures are registered by id
 (``repro_torch.configs.registry``) and selected with ``--arch <id>`` by
 every launcher.  ``reduced()`` derives the CPU-smoke-test configuration —
 same family and block pattern, tiny dimensions.  The port's model runs
-the ``mlstm``/``slstm`` blocks so far (:mod:`repro_torch.models.model`).
+every block kind but ``mamba``, and no MoE yet
+(:mod:`repro_torch.models.model`).
 """
 
 from __future__ import annotations

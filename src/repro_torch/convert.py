@@ -131,28 +131,46 @@ def lm_params_from_reference(params: dict, cfg, *,
     """The port's model on ``device`` holding the reference's parameters.
 
     ``params`` is the reference's tree as numpy arrays: top-level leaves
-    (``embed``, ``norm_f_*``) and ``blocks/b{j}/...`` stacked on a
-    leading ``n_periods`` axis; layer ``i`` of the port takes period ``i
-    // period`` of slot ``b{i % period}``.  Values are carried bitwise; a
-    missing or extra leaf, or a shape that differs, raises."""
+    (``embed``, ``norm_f_*``, ``frontend``, ``norm_enc_*``),
+    ``blocks/b{j}/...`` stacked on a leading ``n_periods`` axis, and for
+    an encoder-decoder ``enc_blocks/b0/...`` stacked on
+    ``n_enc_layers``.  Layer ``i`` of the port takes period ``i //
+    period`` of slot ``b{i % period}``; encoder layer ``i`` takes entry
+    ``i`` of ``enc_blocks/b0``.  Values are carried bitwise; a missing
+    or extra leaf, or a shape that differs, raises."""
     model = GenericLM(cfg, device=resolve_device(device), generator=None)
-    top = {k: v for k, v in params.items() if k != "blocks"}
+    stacks = ("blocks", "enc_blocks")
+    top = {k: v for k, v in params.items() if k not in stacks}
     own = {name for name, _ in model.named_parameters(recurse=False)}
     if set(top) != own:
         raise ValueError(f"the reference has top-level leaves {sorted(top)}, "
                          f"the port {sorted(own)}")
+    want = {"blocks"} | ({"enc_blocks"} if cfg.enc_dec else set())
+    if set(params) & set(stacks) != want:
+        raise ValueError(f"the reference has stacks "
+                         f"{sorted(set(params) & set(stacks))}, the port "
+                         f"{sorted(want)}")
     for name, param in model.named_parameters(recurse=False):
         param.copy_(_array(top[name]).to(param.dtype))
     for i, block in enumerate(model.layers):
         p, j = divmod(i, cfg.period)
         _load(block, params["blocks"][f"b{j}"], p, f"blocks/b{j}[{p}]")
+    if cfg.enc_dec:
+        if set(params["enc_blocks"]) != {"b0"}:
+            raise ValueError(f"enc_blocks has {sorted(params['enc_blocks'])}"
+                             f", the port ['b0']")
+        for i, block in enumerate(model.enc_layers):
+            _load(block, params["enc_blocks"]["b0"], i,
+                  f"enc_blocks/b0[{i}]")
     return model
 
 
 def lm_cache_from_reference(cache: dict, *, device="cuda") -> dict:
     """The reference's decode cache (``{"blocks": {"b{j}": {leaf:
     (n_periods, B, ...)}}}`` as numpy arrays) in the port's layout, which
-    is the same, as tensors on ``device``, bitwise."""
+    is the same, as tensors on ``device``, bitwise and in each leaf's
+    dtype: the recurrent states, ``k``/``v`` in the compute dtype or
+    int8 with bfloat16 ``k_s``/``v_s``, and ``cross_k``/``cross_v``."""
     dev = resolve_device(device)
 
     def convert(tree):

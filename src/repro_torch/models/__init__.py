@@ -1,6 +1,8 @@
 """The language-model stack of the port (counterpart of ``repro.models``):
-xlstm-125m's mLSTM/sLSTM blocks so far, the sLSTM recurrence and the
-one-hot embedding gather on the card's kernels."""
+attention with RoPE and a bf16 or int8 KV cache, the dense MLP, the
+mLSTM/sLSTM blocks, the encoder-decoder and the stub frontends; the
+sLSTM recurrence and the one-hot embedding gather on the card's
+kernels.  Mamba and MoE are not ported yet."""
 
 from .model import (GenericLM, check_supported, decode_step, forward,
                     init_cache, init_model, prefill)

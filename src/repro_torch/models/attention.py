@@ -1,0 +1,248 @@
+"""GQA attention, counterpart of ``repro/models/attention.py``: full-
+sequence attention (dense, or an online softmax over KV blocks above
+``cfg.attn_chunk`` keys) and one-token decode against a KV cache in
+bfloat16 (the compute dtype) or int8 with per-(token, head) scales.
+
+Entry points sharing one parameter set, as the reference's:
+
+* :func:`attention_train`      — full sequence, self- or cross-attention
+* :func:`attention_decode`     — one token: update the cache at ``index``
+  and attend to the prefix
+* :func:`attention_cross_step` — one token against precomputed encoder
+  keys and values (whisper)
+
+Each path keeps the reference's order of operations: the dense path
+scales the float32 logits after the QK product and casts the
+probabilities to ``v``'s dtype before the PV product; the chunked path
+folds the scale into ``q`` and stays in float32 until the result.  The
+mask value is ``-1e30``, not ``-inf``.  The reference's
+``shard_constraint`` is the identity without a mesh and its
+sequence-parallel decode (``_decode_attend_sp``) runs only under one, so
+neither has a counterpart here (ROADMAP Queue 1, item 8).  The port
+writes no attention kernel: the reference's attention is jnp code, not a
+Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .layers import Params, dense, init_dense, rope_rotate, rope_tables
+
+__all__ = ["init_attention", "attention_train", "attention_decode",
+           "attention_cross_step", "init_kv_cache"]
+
+_NEG = -1e30
+
+
+def init_attention(p: Params, cfg, cross: bool = False):
+    d, hd = cfg.d_model, cfg.hd
+    init_dense(p, "wq", d, cfg.n_heads * hd, bias=cfg.qkv_bias)
+    init_dense(p, "wk", d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias)
+    init_dense(p, "wv", d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias)
+    init_dense(p, "wo", cfg.n_heads * hd, d)
+
+
+def _rope_one(t: torch.Tensor, positions, cfg) -> torch.Tensor:
+    """The configured RoPE variant on one ``(B, S, H, hd)`` tensor (the
+    reference's ``apply_rope(t, t, ...)[0]``, without rotating a second
+    copy)."""
+    if positions is None or cfg.rope in ("none", "nope"):
+        return t
+    return rope_rotate(t, rope_tables(positions, cfg.hd, cfg.rope_theta,
+                                      cfg.rope, t.dtype))
+
+
+def _qkv(params, cfg, xq, xkv, positions, kv_positions, dtype):
+    B, S = xq.shape[:2]
+    T = xkv.shape[1]
+    hd = cfg.hd
+    q = dense(params, "wq", xq, dtype).reshape(B, S, cfg.n_heads, hd)
+    k = dense(params, "wk", xkv, dtype).reshape(B, T, cfg.n_kv_heads, hd)
+    v = dense(params, "wv", xkv, dtype).reshape(B, T, cfg.n_kv_heads, hd)
+    return (_rope_one(q, positions, cfg), _rope_one(k, kv_positions, cfg),
+            v)
+
+
+def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, KV, G, hd) with G = H // KV: query head h
+    reads KV head h // G."""
+    B, S, H, hd = q.shape
+    return q.reshape(B, S, n_kv, H // n_kv, hd)
+
+
+def _scale(hd: int) -> float:
+    """``1 / sqrt(hd)`` rounded as the reference's float32 ``1 /
+    sqrt(hd)``; a Python float, so that no copy to the card waits for
+    it (a float32 tensor times a Python float multiplies in float32)."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+
+def _causal_mask(S: int, T: int, q_offset, k_offset: int, device):
+    qi = torch.arange(S, device=device)[:, None] + q_offset
+    ki = torch.arange(T, device=device)[None, :] + k_offset
+    return ki <= qi
+
+
+def _dense_attention(q, k, v, causal: bool, q_offset=0) -> torch.Tensor:
+    """Materialised scores: ``q`` (B, S, KV, G, hd), ``k``/``v`` (B, T,
+    KV, hd) -> (B, S, KV·G, hd) in ``v``'s dtype."""
+    B, S, KV, G, hd = q.shape
+    T = k.shape[1]
+    logits = torch.einsum("bskgh,btkh->bkgst", q.float(),
+                          k.float()) * _scale(hd)
+    if causal:
+        logits = torch.where(_causal_mask(S, T, q_offset, 0, q.device),
+                             logits, _NEG)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", p.to(v.dtype), v)
+    return out.reshape(B, S, KV * G, hd)
+
+
+def _chunked_attention(q, k, v, causal: bool, chunk: int,
+                       q_offset=0) -> torch.Tensor:
+    """Online softmax over KV blocks of ``chunk`` keys (the reference's
+    ``lax.scan``); ``T`` must be a multiple of ``chunk``."""
+    B, S, KV, G, hd = q.shape
+    T = k.shape[1]
+    assert T % chunk == 0, (T, chunk)
+    qf = q.float() * _scale(hd)
+    m = torch.full((B, KV, G, S), _NEG, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, S, hd), dtype=torch.float32,
+                      device=q.device)
+    for j in range(T // chunk):
+        kc = k[:, j * chunk:(j + 1) * chunk].float()
+        vc = v[:, j * chunk:(j + 1) * chunk].float()
+        logits = torch.einsum("bskgh,btkh->bkgst", qf, kc)
+        if causal:
+            logits = torch.where(
+                _causal_mask(S, chunk, q_offset, j * chunk, q.device),
+                logits, _NEG)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        pexp = torch.exp(logits - m_new[..., None])
+        l = l * alpha + pexp.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgst,btkh->bkgsh",
+                                                    pexp, vc)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4)                      # (B,S,KV,G,hd)
+    return out.reshape(B, S, KV * G, hd).to(v.dtype)
+
+
+def _attend(cfg, qg, k, v, causal: bool, q_offset=0) -> torch.Tensor:
+    """The chunked path above ``cfg.attn_chunk`` keys, else the dense."""
+    if cfg.attn_chunk and k.shape[1] > cfg.attn_chunk:
+        return _chunked_attention(qg, k, v, causal, cfg.attn_chunk,
+                                  q_offset)
+    return _dense_attention(qg, k, v, causal, q_offset)
+
+
+def attention_train(params, cfg, x, positions, *, causal: bool = True,
+                    xkv=None, kv_positions=None, dtype=torch.bfloat16,
+                    return_kv: bool = False):
+    """Full-sequence (self- or cross-) attention; ``return_kv=True`` also
+    returns the (rotated) keys and the values, for the cache."""
+    if xkv is None:
+        xkv, kv_positions = x, positions
+    q, k, v = _qkv(params, cfg, x, xkv, positions, kv_positions, dtype)
+    out = _attend(cfg, _group(q, cfg.n_kv_heads), k, v, causal)
+    B, S = x.shape[:2]
+    y = dense(params, "wo", out.reshape(B, S, cfg.n_heads * cfg.hd), dtype)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+# ----------------------------------------------------------------------
+# Decode path
+# ----------------------------------------------------------------------
+
+def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
+                  device) -> dict:
+    """The cache of one attention block: ``k``/``v`` ``(batch, max_len,
+    KV, hd)`` in ``dtype``, or with ``cfg.kv_cache_dtype == "int8"`` int8
+    codes and bfloat16 scales ``k_s``/``v_s`` ``(batch, max_len, KV,
+    1)``."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    if cfg.kv_cache_dtype == "int8":
+        sshape = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_s": torch.zeros(sshape, dtype=torch.bfloat16,
+                                   device=device),
+                "v_s": torch.zeros(sshape, dtype=torch.bfloat16,
+                                   device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _kv_quant(t: torch.Tensor):
+    """(B, S, KV, hd) -> int8 codes and bfloat16 per-(token, head)
+    scales ``max|t| / 127``; the divides are IEEE divisions by tensors,
+    and rounding is half to even, as ``jnp.round``."""
+    tf = t.float()
+    amax = tf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-8)
+    scale = scale / torch.full_like(scale, 127.0)
+    q = torch.clamp(torch.round(tf / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def _kv_dequant(q: torch.Tensor, scale: torch.Tensor,
+                dtype=torch.bfloat16) -> torch.Tensor:
+    return (q.float() * scale.float()).to(dtype)
+
+
+def _update(buf: torch.Tensor, new: torch.Tensor, index) -> torch.Tensor:
+    """A copy of ``buf`` with ``new`` written along axis 1 at ``index``,
+    the start clamped so that the update fits, as
+    ``jax.lax.dynamic_update_slice_in_dim`` clamps it."""
+    T, n = buf.shape[1], new.shape[1]
+    i = min(max(int(index), 0), T - n)
+    out = buf.clone()
+    out[:, i:i + n] = new.to(buf.dtype)
+    return out
+
+
+def attention_decode(params, cfg, x, cache: dict, index, *,
+                     dtype=torch.bfloat16):
+    """One-token step: write the token's keys and values at ``index``
+    and attend to the cached prefix (keys past ``index`` are masked).
+    ``x``: (B, 1, d); ``index``: the position, a Python int."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), int(index), dtype=torch.int32,
+                           device=x.device)
+    if cfg.rope == "mrope":
+        positions = positions.expand(3, B, 1)
+    q, k_new, v_new = _qkv(params, cfg, x, x, positions, positions, dtype)
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = _kv_quant(k_new)
+        vq, vs = _kv_quant(v_new)
+        new_cache = {"k": _update(cache["k"], kq, index),
+                     "v": _update(cache["v"], vq, index),
+                     "k_s": _update(cache["k_s"], ks, index),
+                     "v_s": _update(cache["v_s"], vs, index)}
+        k = _kv_dequant(new_cache["k"], new_cache["k_s"], dtype)
+        v = _kv_dequant(new_cache["v"], new_cache["v_s"], dtype)
+    else:
+        k = _update(cache["k"], k_new, index)
+        v = _update(cache["v"], v_new, index)
+        new_cache = {"k": k, "v": v}
+    out = _attend(cfg, _group(q, cfg.n_kv_heads), k, v, True,
+                  q_offset=int(index))
+    y = dense(params, "wo", out.reshape(B, 1, cfg.n_heads * cfg.hd), dtype)
+    return y, new_cache
+
+
+def attention_cross_step(params, cfg, x, k, v, *, dtype=torch.bfloat16):
+    """Decode-time cross-attention against precomputed encoder keys and
+    values (dense, not causal)."""
+    B = x.shape[0]
+    q = dense(params, "wq", x, dtype).reshape(B, 1, cfg.n_heads, cfg.hd)
+    out = _dense_attention(_group(q, cfg.n_kv_heads), k, v, causal=False)
+    return dense(params, "wo", out.reshape(B, 1, cfg.n_heads * cfg.hd),
+                 dtype)

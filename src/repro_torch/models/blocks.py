@@ -1,37 +1,42 @@
 """Residual blocks, counterpart of ``repro/models/blocks.py``: a
-pre-normed mixer with a residual.
-
-The port runs the ``mlstm`` and ``slstm`` kinds with no MLP (``d_ff =
-0``: the reference's ``_ffn_part`` is then the identity with a zero
-auxiliary loss), which is what xlstm-125m needs.  Any other kind or
-feature raises :class:`NotImplementedError` naming the ROADMAP item that
-ports it.  Three entry points, as the reference's:
+pre-normed mixer (``attn``, ``mlstm`` or ``slstm``), a cross-attention
+sub-block in the decoder of an encoder-decoder, and a pre-normed MLP
+(``d_ff > 0``), each with a residual.  Three entry points, as the
+reference's:
 
 * :func:`block_forward` — full sequence
 * :func:`block_prefill` — full sequence, also returns the decode cache
-* :func:`block_step`    — one token with cache
+  (an attention block's KV cache padded to ``max_len``, in the compute
+  dtype or int8)
+* :func:`block_step`    — one token with cache, at position ``index``
+
+The ``mamba`` kind and MoE raise :class:`NotImplementedError` naming the
+ROADMAP item that ports them.  Without MoE the reference's auxiliary
+loss is 0, so the port's blocks return none.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from .layers import Params, apply_norm, init_norm
+from .attention import (_kv_quant, attention_cross_step, attention_decode,
+                        attention_train, init_attention, init_kv_cache)
+from .layers import Params, activation, apply_norm, dense, init_dense, \
+    init_norm
 from .ssm import (init_mlstm, init_mlstm_cache, init_slstm,
                   init_slstm_cache, mlstm_forward, mlstm_step,
                   slstm_forward, slstm_step)
 
-__all__ = ["init_block", "init_block_cache", "block_forward",
-           "block_prefill", "block_step", "unported"]
+__all__ = ["init_mlp", "mlp_forward", "init_block", "init_block_cache",
+           "block_forward", "block_prefill", "block_step", "unported"]
 
 # What each unported block kind or feature waits for.
 _UNPORTED = {
-    "attn": "attention and RoPE (ROADMAP Queue 1, item 4)",
-    "cross": "cross-attention (ROADMAP Queue 1, item 4)",
     "mamba": "the Mamba mixer (ROADMAP Queue 1, item 5)",
-    "mlp": "the MLP (ROADMAP Queue 1, item 6)",
     "moe": "MoE (ROADMAP Queue 1, item 6)",
 }
+_KINDS = ("attn", "mlstm", "slstm")
 
 
 def unported(what: str) -> NotImplementedError:
@@ -39,57 +44,181 @@ def unported(what: str) -> NotImplementedError:
                                f"{_UNPORTED[what]}")
 
 
-def _check(cfg, kind: str):
-    if kind not in ("mlstm", "slstm"):
+def _check(kind: str):
+    if kind not in _KINDS:
         if kind in _UNPORTED:
             raise unported(kind)
         raise ValueError(f"unknown mixer kind {kind!r}")
+
+
+# ----------------------------------------------------------------------
+# MLP
+# ----------------------------------------------------------------------
+
+def init_mlp(p: Params, cfg):
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp_act == "swiglu":
+        init_dense(p, "w_gate", d, ff)
+        init_dense(p, "w_up", d, ff)
+    else:
+        init_dense(p, "w_in", d, ff)
+    init_dense(p, "w_down", ff, d)
+
+
+def mlp_forward(params, cfg, x, dtype) -> torch.Tensor:
+    if cfg.mlp_act == "swiglu":
+        h = activation("swiglu")(dense(params, "w_gate", x, dtype)) \
+            * dense(params, "w_up", x, dtype)
+    else:
+        h = activation(cfg.mlp_act)(dense(params, "w_in", x, dtype))
+    return dense(params, "w_down", h, dtype)
+
+
+def _ffn_part(params, cfg, x, dtype) -> torch.Tensor:
     if cfg.d_ff:
-        raise unported("mlp")
+        h = apply_norm(params, "ln2", x, cfg.norm)
+        x = x + mlp_forward(params["mlp"], cfg, h, dtype)
+    return x
 
 
-def init_block(p: Params, cfg, kind: str):
-    _check(cfg, kind)
+# ----------------------------------------------------------------------
+# Init
+# ----------------------------------------------------------------------
+
+def init_block(p: Params, cfg, kind: str, cross: bool = False):
+    _check(kind)
     init_norm(p, "ln1", cfg.d_model, cfg.norm)
     mixer = p.sub("mixer")
-    if kind == "mlstm":
+    if kind == "attn":
+        init_attention(mixer, cfg)
+    elif kind == "mlstm":
         init_mlstm(mixer, cfg)
     else:
         init_slstm(mixer, cfg)
+    if cross:
+        init_norm(p, "lnx", cfg.d_model, cfg.norm)
+        init_attention(p.sub("cross"), cfg, cross=True)
+    if cfg.d_ff:
+        init_norm(p, "ln2", cfg.d_model, cfg.norm)
+        init_mlp(p.sub("mlp"), cfg)
 
 
-def init_block_cache(cfg, kind: str, batch: int, *, device) -> dict:
-    """The decode cache of one block: recurrent state, no time axis."""
-    _check(cfg, kind)
-    if kind == "mlstm":
-        return init_mlstm_cache(cfg, batch, device=device)
-    return init_slstm_cache(cfg, batch, device=device)
+def init_block_cache(cfg, kind: str, batch: int, max_len: int,
+                     cross: bool = False, enc_len: int = 0,
+                     dtype=torch.bfloat16, *, device) -> dict:
+    """The decode cache of one block: an attention block's KV cache of
+    ``max_len`` positions, or a recurrent state (no time axis); the
+    decoder of an encoder-decoder adds ``cross_k``/``cross_v`` of
+    ``enc_len`` positions."""
+    _check(kind)
+    if kind == "attn":
+        cache = init_kv_cache(cfg, batch, max_len, dtype, device=device)
+    elif kind == "mlstm":
+        cache = init_mlstm_cache(cfg, batch, device=device)
+    else:
+        cache = init_slstm_cache(cfg, batch, device=device)
+    if cross:
+        shape = (batch, enc_len, cfg.n_kv_heads, cfg.hd)
+        cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
 
 
-def block_forward(params, cfg, kind: str, x: torch.Tensor, *,
-                  dtype=torch.bfloat16) -> torch.Tensor:
-    _check(cfg, kind)
+# ----------------------------------------------------------------------
+# Forward paths
+# ----------------------------------------------------------------------
+
+def _cross(params, cfg, x, positions, enc_out, enc_positions, dtype,
+           return_kv: bool = False):
+    h = apply_norm(params, "lnx", x, cfg.norm)
+    return attention_train(params["cross"], cfg, h, positions,
+                           causal=False, xkv=enc_out,
+                           kv_positions=enc_positions, dtype=dtype,
+                           return_kv=return_kv)
+
+
+def block_forward(params, cfg, kind: str, x, positions=None, *,
+                  causal: bool = True, cross: bool = False, enc_out=None,
+                  enc_positions=None, dtype=torch.bfloat16) -> torch.Tensor:
+    _check(kind)
     h = apply_norm(params, "ln1", x, cfg.norm)
-    mixer = mlstm_forward if kind == "mlstm" else slstm_forward
-    return x + mixer(params["mixer"], cfg, h, dtype=dtype)
+    m = params["mixer"]
+    if kind == "attn":
+        mix = attention_train(m, cfg, h, positions, causal=causal,
+                              dtype=dtype)
+    elif kind == "mlstm":
+        mix = mlstm_forward(m, cfg, h, dtype=dtype)
+    else:
+        mix = slstm_forward(m, cfg, h, dtype=dtype)
+    x = x + mix
+    if cross:
+        x = x + _cross(params, cfg, x, positions, enc_out, enc_positions,
+                       dtype)
+    return _ffn_part(params, cfg, x, dtype)
 
 
-def block_prefill(params, cfg, kind: str, x: torch.Tensor, *,
-                  dtype=torch.bfloat16):
-    """Forward + decode-cache extraction (the sequence fills ``[0, S)``)."""
-    _check(cfg, kind)
+def block_prefill(params, cfg, kind: str, x, positions=None,
+                  max_len: int = 0, *, cross: bool = False, enc_out=None,
+                  enc_positions=None, dtype=torch.bfloat16):
+    """Forward and the decode cache (the sequence fills ``[0, S)`` of an
+    attention block's ``max_len`` positions; the rest are zeros)."""
+    _check(kind)
+    S = x.shape[1]
+    if kind == "attn" and max_len < S:
+        raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
+                         f"max_len={max_len}")
     h = apply_norm(params, "ln1", x, cfg.norm)
-    mixer = mlstm_forward if kind == "mlstm" else slstm_forward
-    mix, cache = mixer(params["mixer"], cfg, h, dtype=dtype,
-                       return_state=True)
-    return x + mix, cache
+    m = params["mixer"]
+    if kind == "attn":
+        mix, (k, v) = attention_train(m, cfg, h, positions, causal=True,
+                                      dtype=dtype, return_kv=True)
+        pad = (0, 0, 0, 0, 0, max_len - S)
+        if cfg.kv_cache_dtype == "int8":
+            kq, ks = _kv_quant(k)
+            vq, vs = _kv_quant(v)
+            cache = {"k": F.pad(kq, pad), "v": F.pad(vq, pad),
+                     "k_s": F.pad(ks, pad), "v_s": F.pad(vs, pad)}
+        else:
+            cache = {"k": F.pad(k, pad).to(dtype),
+                     "v": F.pad(v, pad).to(dtype)}
+    elif kind == "mlstm":
+        mix, cache = mlstm_forward(m, cfg, h, dtype=dtype,
+                                   return_state=True)
+    else:
+        mix, cache = slstm_forward(m, cfg, h, dtype=dtype,
+                                   return_state=True)
+    x = x + mix
+    if cross:
+        y, (ck, cv) = _cross(params, cfg, x, positions, enc_out,
+                             enc_positions, dtype, return_kv=True)
+        x = x + y
+        cache = dict(cache, cross_k=ck.to(dtype), cross_v=cv.to(dtype))
+    return _ffn_part(params, cfg, x, dtype), cache
 
 
-def block_step(params, cfg, kind: str, x: torch.Tensor, cache: dict, *,
-               dtype=torch.bfloat16):
-    """One-token decode step.  ``x``: (B, 1, d)."""
-    _check(cfg, kind)
+def block_step(params, cfg, kind: str, x, cache: dict, index=0, *,
+               cross: bool = False, dtype=torch.bfloat16):
+    """One-token decode step.  ``x``: (B, 1, d); ``index``, the position,
+    is the attention kind's (the recurrent kinds carry it in their
+    state)."""
+    _check(kind)
     h = apply_norm(params, "ln1", x, cfg.norm)
-    step = mlstm_step if kind == "mlstm" else slstm_step
-    mix, new_cache = step(params["mixer"], cfg, h, cache, dtype=dtype)
-    return x + mix, new_cache
+    m = params["mixer"]
+    mix_cache = {k: v for k, v in cache.items()
+                 if not k.startswith("cross_")}
+    if kind == "attn":
+        mix, new_cache = attention_decode(m, cfg, h, mix_cache, index,
+                                          dtype=dtype)
+    elif kind == "mlstm":
+        mix, new_cache = mlstm_step(m, cfg, h, mix_cache, dtype=dtype)
+    else:
+        mix, new_cache = slstm_step(m, cfg, h, mix_cache, dtype=dtype)
+    x = x + mix
+    if cross:
+        h = apply_norm(params, "lnx", x, cfg.norm)
+        x = x + attention_cross_step(params["cross"], cfg, h,
+                                     cache["cross_k"], cache["cross_v"],
+                                     dtype=dtype)
+        new_cache = dict(new_cache, cross_k=cache["cross_k"],
+                         cross_v=cache["cross_v"])
+    return _ffn_part(params, cfg, x, dtype), new_cache

@@ -1,6 +1,6 @@
 """Shared layers of the language-model stack, counterpart of
-``repro/models/layers.py``: the parameter tree, dense, norms, embeddings
-and activations.  RoPE comes with the attention slice.
+``repro/models/layers.py``: the parameter tree, dense, norms, embeddings,
+the RoPE family (standard, ``rope2d``, M-RoPE) and activations.
 
 Parameters live in :class:`Params` modules keyed by the reference's
 names (``ln1_scale``, ``mixer``, ``zifo``, ...), so ``params["zifo"]``
@@ -20,6 +20,8 @@ from ..core.gather_ops import gather as gather_rows
 
 __all__ = ["DTYPES", "Params", "init_dense", "dense", "init_norm",
            "apply_norm", "init_embed", "embed_lookup", "unembed",
+           "rope_freqs", "rope_tables", "rope_rotate", "apply_rope",
+           "make_positions_mrope",
            "activation"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -153,6 +155,109 @@ def unembed(params, x: torch.Tensor, tie: bool,
     else:
         w = params["unembed"].to(compute_dtype)
     return (x.to(compute_dtype) @ w).float()
+
+
+# ----------------------------------------------------------------------
+# RoPE family: standard, 2d (ChatGLM), M-RoPE (Qwen2-VL)
+# ----------------------------------------------------------------------
+
+def rope_freqs(hd: int, theta: float, rotary_dim: int | None = None, *,
+               device=None) -> torch.Tensor:
+    """The ``rd / 2`` inverse frequencies ``theta ** -(2i / rd)``, float32;
+    ``rd`` is ``rotary_dim`` or ``hd``."""
+    rd = rotary_dim or hd
+    ex = torch.arange(0, rd, 2, dtype=torch.float32, device=device)
+    # A tensor divisor: on a CUDA tensor PyTorch divides by a Python
+    # scalar as a multiply by its reciprocal, not as the reference.
+    ex = ex / torch.full_like(ex, rd)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), ex)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor) -> torch.Tensor:
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def rope_tables(positions: torch.Tensor, hd: int, theta: float,
+                variant: str, dtype: torch.dtype):
+    """``(cos, sin, rd)`` of a RoPE variant (see :func:`apply_rope`):
+    ``(B, S, 1, rd / 2)`` in ``dtype``, rotating the first ``rd`` dims."""
+    dev = positions.device
+    if variant == "mrope":
+        if positions.ndim != 3:
+            raise ValueError("mrope wants (3, B, S) positions")
+        rd = hd
+        inv = rope_freqs(hd, theta, device=dev)
+        n = inv.shape[0]
+        s1, s2 = n - 2 * (n // 4), n // 4
+        sec = torch.cat([
+            torch.zeros((s1,), dtype=torch.int32, device=dev),
+            torch.ones((s2,), dtype=torch.int32, device=dev),
+            torch.full((n - s1 - s2,), 2, dtype=torch.int32, device=dev)])
+        ang_all = positions.to(torch.float32)[..., None] * inv
+        ang = ((sec == 0) * ang_all[0] + (sec == 1) * ang_all[1]
+               + (sec == 2) * ang_all[2])                 # (B, S, rd/2)
+    elif variant in ("standard", "rope2d"):
+        rd = hd // 2 if variant == "rope2d" else hd
+        inv = rope_freqs(hd, theta, rd, device=dev)
+        ang = positions.to(torch.float32)[..., None] * inv  # (B, S, rd/2)
+    else:
+        raise ValueError(f"unknown rope variant {variant!r}")
+    return (torch.cos(ang)[:, :, None, :].to(dtype),
+            torch.sin(ang)[:, :, None, :].to(dtype), rd)
+
+
+def rope_rotate(x: torch.Tensor, tables) -> torch.Tensor:
+    """Rotate the first ``rd`` dims of ``x`` (B, S, H, hd) by
+    :func:`rope_tables`; the rest pass through."""
+    cos, sin, rd = tables
+    if rd == x.shape[-1]:
+        return _rotate(x, cos, sin)
+    return torch.cat([_rotate(x[..., :rd], cos, sin), x[..., rd:]], -1)
+
+
+def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+               hd: int, theta: float, variant: str):
+    """Apply a RoPE variant to ``(B, S, H, hd)`` queries and keys.
+
+    ``standard``: full-dim rotary on positions ``(B, S)``.  ``rope2d``
+    (ChatGLM): rotary on the first ``hd // 2`` dims with
+    ``rope_freqs(hd, theta, hd // 2)``, the rest passes through.
+    ``mrope`` (Qwen2-VL): positions ``(3, B, S)``; the frequency dims are
+    split 2:1:1 over the (t, h, w) components (t gets the low
+    frequencies), which is standard RoPE when the three are equal.
+    ``none``/``nope``: the identity.  The angles are float32; ``cos`` and
+    ``sin`` are cast to ``q.dtype`` before they rotate, as the
+    reference's."""
+    if variant in ("none", "nope"):
+        return q, k
+    tables = rope_tables(positions, hd, theta, variant, q.dtype)
+    return rope_rotate(q, tables), rope_rotate(k, tables)
+
+
+def make_positions_mrope(batch: int, seq: int, n_patches: int = 0,
+                         grid: tuple[int, int] | None = None, *,
+                         device=None) -> torch.Tensor:
+    """(t, h, w) positions ``(3, batch, seq)`` int32: a patch grid
+    (t = 0, h and w its row and column) followed by text tokens at t = h
+    = w = 1, 2, ...; without patches t = h = w = 0, 1, ..."""
+    def iota(n):
+        return torch.arange(n, dtype=torch.int32, device=device)
+
+    t = iota(seq)
+    if n_patches and grid:
+        _, gw = grid
+        t_txt = iota(seq - n_patches) + 1
+        t = torch.cat([torch.zeros((n_patches,), dtype=torch.int32,
+                                   device=device), t_txt])
+        h = torch.cat([iota(n_patches) // gw, t_txt])
+        w = torch.cat([iota(n_patches) % gw, t_txt])
+    else:
+        h = w = t
+    pos = torch.stack([t, h, w])                          # (3, S)
+    return pos[:, None, :].expand(3, batch, seq)
 
 
 # ----------------------------------------------------------------------

@@ -17,7 +17,9 @@ slot-based continuous batching over the port's ``prefill`` /
 
 On the card the sLSTM recurrence of every prefill and decode step runs
 in kernel row 10, and with ``gather_impl="onehot"`` the embedding in
-kernel row 9.  The splice writes into the cache in place.
+kernel row 9.  The splice writes into the cache in place.  One position
+index per decode call is the reference's design; per-slot positions
+would be a feature it lacks.
 """
 
 from __future__ import annotations
@@ -46,9 +48,12 @@ def _masked_decode_step(params, cfg, cache, tokens, index, slot_mask):
 
     The engine advances slots in groups of equal position index, but
     ``decode_step`` runs the full batch: without the mask every group
-    call would also rewrite the cache rows of slots outside the group.
-    The recurrent leaves (mLSTM/sLSTM) have no time axis, so the merge
-    takes whole rows; rows outside the group stay bit-identical.
+    call would also rewrite the cache rows of slots outside the group (an
+    attention block's at the group's index, the wrong position).  Every
+    leaf has the slots on axis 1: the recurrent states (mLSTM/sLSTM, no
+    time axis) and the KV leaves ``(n_periods, B, T, KV, hd)`` alike, so
+    the merge takes whole rows; rows outside the group stay
+    bit-identical.
     """
     logits, new_cache = decode_step(params, cfg, cache, tokens, index)
 

@@ -462,6 +462,27 @@ def test_row_gather_equals_plain_and_embedding_bitwise(dev, dtype, V, D, n):
     assert not got[0][~ok].any()
 
 
+@pytest.mark.parametrize("n", [4, 512])
+def test_row_gather_at_chatglm3_width(dev, n):
+    """Row 9 at chatglm3-6b's embedding, V = 65024, D = 4096, bfloat16: a
+    decode call's 4 ids and a prompt's 512, bitwise equal to its plain
+    version and to F.embedding."""
+    from repro_torch.core.gather_ops import gather
+    from repro_torch.kernels.gather_ref import gather_ref
+
+    V, D = 65024, 4096
+    g = torch.Generator(device=dev).manual_seed(n)
+    table = torch.randn((V, D), generator=g, device=dev).to(torch.bfloat16)
+    ids = torch.randint(0, V, (n,), generator=g, device=dev)
+    ids[0], ids[-1] = V - 1, 0
+    before = LAUNCHES["onehot_gather"]
+    got = gather(table, ids.reshape(1, n), impl="onehot")
+    torch.cuda.synchronize()
+    assert LAUNCHES["onehot_gather"] == before + 1
+    assert torch.equal(got[0], gather_ref(table, ids))
+    assert torch.equal(got[0], torch.nn.functional.embedding(ids, table))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["odd_width", "one_row", "ragged_rows",
                                   "all_out_of_range", "unaligned",
@@ -689,3 +710,49 @@ def test_take_and_onehot_serve_identical_greedy_tokens(dev):
         assert (LAUNCHES["onehot_gather"] > 0) == (impl == "onehot")
         served[impl] = [r.out_tokens for r in reqs]
     assert served["take"][0::2] == served["onehot"][0::2]
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "whisper-small",
+                                  "qwen2-vl-2b"])
+def test_attention_model_on_the_card_matches_the_cpu(dev, arch):
+    """An attention model (reduced, float32) on the card against the same
+    parameters on the CPU: forward, prefill and a decode step at 2e-4 x
+    max(1, max|ref|); with gather_impl="onehot" the card launches row 9
+    once a call and gives the same bits as "take"."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import decode_step, forward, init_model, prefill
+    from repro_torch.models.model import FRONTEND_DIM
+
+    cfg = ARCHS[arch].reduced()
+    model = init_model(cfg, seed=4, device="cpu")
+    on_card = init_model(cfg, seed=4, device="cpu").to(dev)
+    g = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 12), generator=g)}
+    if cfg.frontend:
+        n = 4 if cfg.frontend == "vision" else 16
+        key = "patches" if cfg.frontend == "vision" else "frames"
+        batch[key] = torch.randn((2, n, FRONTEND_DIM[cfg.frontend]),
+                                 generator=g)
+    n = 12 + (4 if cfg.frontend == "vision" else 0)
+    tok = batch["tokens"][:, :1]
+
+    def run(m, c, b):
+        logits, _ = forward(m, c, b)
+        last, cache = prefill(m, c, b, 24)
+        step, _ = decode_step(m, c, cache, tok.to(m.device), n)
+        return logits, last, step
+
+    want = run(model, cfg, batch)
+    card = {k: v.to(dev) for k, v in batch.items()}
+    got = run(on_card, cfg, card)
+    for a, b in zip(got, want):
+        tol = 2e-4 * max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=tol)
+    onehot = dataclasses.replace(cfg, gather_impl="onehot")
+    before = LAUNCHES["onehot_gather"]
+    got1 = run(on_card, onehot, card)
+    torch.cuda.synchronize()
+    assert LAUNCHES["onehot_gather"] == before + 3
+    assert all(torch.equal(a, b) for a, b in zip(got, got1))

@@ -72,36 +72,66 @@ def test_configs_are_the_reference_values(arch):
     assert ARCHS[arch].param_count() == REF_ARCHS[arch].param_count()
 
 
-@pytest.mark.parametrize("arch", sorted(set(REF_ARCHS) - {ARCH}))
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "qwen3-moe-235b-a22b",
+                                  "kimi-k2-1t-a32b"])
 def test_unported_architectures_raise(arch):
+    """Mamba (item 5) and MoE (item 6) are what the port lacks."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item"):
         check_supported(ARCHS[arch].reduced())
     with pytest.raises(NotImplementedError):
         init_model(ARCHS[arch].reduced(), device="cpu")
 
 
-def test_parameters_carried_bitwise(pair):
-    """Layer i holds period i // 2 of slot b{i % 2}; every leaf bitwise;
-    and a tree with a missing leaf raises."""
-    params, port, cfg = pair
+def _leaf(tree, name):
+    for part in name.split("."):
+        tree = tree[part]
+    return tree
+
+
+@pytest.mark.parametrize("arch", [ARCH, "whisper-small", "qwen2-vl-2b"])
+def test_parameters_carried_bitwise(arch):
+    """Layer i holds period i // period of slot b{i % period}, encoder
+    layer i entry i of enc_blocks/b0; top-level leaves (frontend,
+    norm_enc_*) carried; every leaf bitwise; and a tree with a missing
+    leaf raises."""
+    cfg = ARCHS[arch].reduced()
+    params, _ = ref_model.init_model(REF_ARCHS[arch].reduced(),
+                                     jax.random.PRNGKey(0))
     np_params = _np_tree(params)
-    np.testing.assert_array_equal(port.embed.numpy(), np_params["embed"])
-    for i, block in enumerate(port.layers):
-        p, j = divmod(i, cfg.period)
-        ref = np_params["blocks"][f"b{j}"]
-        for name, t in block.named_parameters():
-            leaf = ref
-            for part in name.split("."):
-                leaf = leaf[part]
-            np.testing.assert_array_equal(t.numpy(), leaf[p])
+    port = lm_params_from_reference(np_params, cfg, device="cpu")
+    for name, t in port.named_parameters(recurse=False):
+        np.testing.assert_array_equal(t.numpy(), np_params[name])
+    stacks = [("blocks", port.layers, cfg.period)]
+    if cfg.enc_dec:
+        stacks.append(("enc_blocks", port.enc_layers, 1))
+    for stack, blocks, period in stacks:
+        for i, block in enumerate(blocks):
+            p, j = divmod(i, period)
+            for name, t in block.named_parameters():
+                np.testing.assert_array_equal(
+                    t.numpy(), _leaf(np_params[stack][f"b{j}"], name)[p])
     n_ref = sum(a.size for a in jax.tree.leaves(np_params))
     assert sum(t.numel() for t in port.parameters()) == n_ref
-    broken = dict(np_params, blocks={
-        "b0": np_params["blocks"]["b0"],
-        "b1": {k: v for k, v in np_params["blocks"]["b1"].items()
-               if k != "ln1_bias"}})
-    with pytest.raises(ValueError, match="ln1_bias"):
+    if arch == ARCH:
+        broken = dict(np_params, blocks={
+            "b0": np_params["blocks"]["b0"],
+            "b1": {k: v for k, v in np_params["blocks"]["b1"].items()
+                   if k != "ln1_bias"}})
+        missing = "ln1_bias"
+    elif cfg.enc_dec:
+        b0 = dict(np_params["enc_blocks"]["b0"])
+        b0["mixer"] = {k: v for k, v in b0["mixer"].items() if k != "wv"}
+        broken = dict(np_params, enc_blocks={"b0": b0})
+        missing = "wv"
+    else:
+        broken = {k: v for k, v in np_params.items() if k != "frontend"}
+        missing = "frontend"
+    with pytest.raises(ValueError, match=missing):
         lm_params_from_reference(broken, cfg, device="cpu")
+    if cfg.enc_dec:
+        without = {k: v for k, v in np_params.items() if k != "enc_blocks"}
+        with pytest.raises(ValueError, match="enc_blocks"):
+            lm_params_from_reference(without, cfg, device="cpu")
 
 
 @pytest.mark.parametrize("impl", ["take", "onehot"])

@@ -37,6 +37,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.kernels.slstm, repro_torch.kernels.slstm_ref, "
             "repro_torch.kernels.slstm_ops, repro_torch.models, "
             "repro_torch.models.layers, repro_torch.models.ssm, "
+            "repro_torch.models.attention, "
             "repro_torch.models.blocks, repro_torch.models.model, "
             "repro_torch.serving, repro_torch.serving.engine, "
             "repro_torch.launch.serve\n"
