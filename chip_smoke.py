@@ -32,8 +32,19 @@ gathers, a 2 x 2048 forward on the chunked attention path; the same
 widths cut to 4 layers in float32 for three checks that each see a
 planted fault (decode against forward, chunked against dense attention,
 the int8 KV cache within the reference's bounds); and whisper-small and
-qwen2-vl-2b at full width (prefill and decode, finite logits).  Any
-failed check exits non-zero.  The last line of standard output is
+qwen2-vl-2b at full width (prefill and decode, finite logits).  Then
+jamba-v0.1-52b (Mamba and attention, MoE on every second block) at its
+published widths cut to one period of 8 layers, bfloat16 from a seed:
+served with ``take`` and ``onehot`` (equal greedy tokens, row 9 at its
+65536 x 4096 table once a prefill and decode call) beside its
+weight-bytes floor and the profiled device time of a decode call, a
+prefill bitwise under both gathers (the Mamba states included), a
+2 x 2048 forward (the scan in 8 chunks with carries); one Mamba mixer
+and one MoE layer at its widths in float32 for three checks that each
+see a planted fault (steps against forward, chunked against one chunk,
+scatter against einsum where assignments drop); and qwen3-moe-235b-a22b
+(2 layers) and kimi-k2-1t-a32b (1 layer) at full width (prefill and
+decode, finite logits).  Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the JSON record of
 every kernel of the path.  Needs one CUDA card; imports nothing of JAX
 or of the JAX package.
@@ -168,7 +179,28 @@ GLM_CHUNK_TOL = 2e-3
 KV_INT8_REL, KV_INT8_AGREE, KV_INT8_B = 0.15, 0.5, 8
 WHISPER_FRAMES = 1000               # <= attn_chunk: dense (1500 raises)
 VL_GRID, VL_TEXT = 16, 64           # a 16 x 16 patch grid, 64 text tokens
-LM_DECODE_STEPS = 4                 # 12d
+LM_DECODE_STEPS = 4                 # 12d, 13e
+
+# Phase 13: jamba-v0.1-52b at its published widths, one period deep (all
+# 32 layers are 102.90 GB in bf16, more than the card's 80 GB; one period
+# holds every block kind and both FFN kinds), and the MoE families.
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_DEPTH = 8
+JAMBA_FORWARD = (2, 2048)           # 8 chunks of the scan, with carries
+# 13d, float32, one mixer / one MoE layer at jamba's widths: max |d| / (1
+# + |ref|).  A prefill of MAMBA_SPLIT[0] tokens then MAMBA_SPLIT[1] steps
+# against one forward over both (the recurrence stepped against the
+# doubling scan), and MAMBA_CHUNKS_S tokens in chunks of 256 against one
+# chunk: the reference's scan tolerance, 2e-4.  scatter against einsum
+# on MOE_TOKENS tokens at capacity_factor MOE_CF (so that assignments
+# drop): the reference's own 1e-4 (tests/test_moe.py).
+MAMBA_SPLIT, MAMBA_B = (500, 12), 2
+MAMBA_CHUNKS_S = 2048
+MAMBA_TOL = 2e-4
+MOE_TOKENS, MOE_CF, MOE_TOL = 512, 0.5, 1e-4
+# 13e: (architecture, depth cut); 94 and 61 layers do not fit one card.
+MOE_FAMILIES = (("qwen3-moe-235b-a22b", 2), ("kimi-k2-1t-a32b", 1))
+MOE_PROMPT = 64
 
 
 def fail(msg: str) -> None:
@@ -1744,15 +1776,18 @@ def profiled_call(fn, calls: int = 3) -> dict:
                     for e in top]}
 
 
-def serve_glm(cfg, dev) -> dict:
-    """Phase 12a, 12b and 12e: the model at its published widths in
-    bfloat16 from SEED, served greedily (:func:`served_runs`, 8 requests
-    of LM_PROMPT tokens, LM_MAX_TOKENS each, take and onehot) beside the
-    weight-bytes floor of a decode call; the card's own time of a decode
+def serve_full(cfg, dev, phase: int, fwd_label: str, fwd_shape,
+               counted_fn, want_counted: int) -> dict:
+    """Phase 12a, 12b, 12e (chatglm3-6b) and 13a-c (jamba): ``cfg`` at
+    its published widths in bfloat16 from SEED, served greedily
+    (:func:`served_runs`, 8 requests of LM_PROMPT tokens, LM_MAX_TOKENS
+    each, take and onehot) beside the weight-bytes floor of a decode
+    call (every parameter but the embedding table read once; an MoE
+    layer's einsums read every expert); the card's own time of a decode
     call; one prompt's prefill bitwise equal under take and onehot
-    (logits and every cache leaf); a timed forward of GLM_FORWARD tokens
-    on the chunked path."""
-    import repro_torch.models.attention as attn
+    (logits and every cache leaf); a timed forward of ``fwd_shape``
+    tokens in which ``counted_fn`` (module, name) must run
+    ``want_counted`` times (the chunked attention, the scan's chunks)."""
     from repro_torch.models import (decode_step, forward, init_cache,
                                     init_model, prefill)
 
@@ -1760,22 +1795,35 @@ def serve_glm(cfg, dev) -> dict:
     model = init_model(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    wbytes = total - model.embed.numel() * model.embed.element_size()
     floor_ms = 1e3 * wbytes / PEAK_BYTES_S
+    kinds = [cfg.block_pattern[i % cfg.period] for i in range(cfg.n_layers)]
+    moe_at = [i for i in range(cfg.n_layers) if cfg.moe_at(i % cfg.period)]
     print(f"  {cfg.name}: {n_params / 1e9:.4f} B parameters "
-          f"({cfg.param_dtype}, {wbytes / 1e9:.2f} GB), drawn on the card "
-          f"in {time.perf_counter() - t0:.2f} s; {cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV "
-          f"heads, hd {cfg.hd}, rope {cfg.rope}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab}; a decode call reads the weights once: floor "
-          f"{floor_ms:.3f} ms at {PEAK_BYTES_S / 1e12:.2f} TB/s")
-    print("phase 12a: served, greedy")
+          f"({cfg.param_dtype}, {total / 1e9:.2f} GB), drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; {cfg.n_layers} layers "
+          f"{sorted(set(kinds))}, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads, {cfg.n_kv_heads} KV heads, rope {cfg.rope}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}"
+          + (f", d_inner {cfg.d_inner}, d_state {cfg.d_state}"
+             if "mamba" in kinds else "")
+          + (f"; MoE ({cfg.n_experts} experts, top {cfg.top_k}) at layers "
+             f"{moe_at}" if moe_at else "")
+          + f"; a decode call reads {wbytes / 1e9:.2f} GB of weights (all "
+          f"but the embedding): floor {floor_ms:.3f} ms at "
+          f"{PEAK_BYTES_S / 1e12:.2f} TB/s")
+    print(f"phase {phase}a: served, greedy")
     prompts = lm_prompts(cfg)
     runs = served_runs(cfg, model, prompts, [0.0] * len(prompts), dev)
     for impl, r in runs.items():
-        print(f"    {impl}: {r['decode_ms_per_call']:.3f} ms per decode call "
-              f"= {r['decode_ms_per_call'] / floor_ms:.2f}x the "
-              f"{floor_ms:.3f} ms weight-bytes floor")
+        print(f"    {impl}: {r['tokens_per_s']:.2f} tokens/s, "
+              f"{r['decode_ms_per_call']:.3f} ms per decode call = "
+              f"{r['decode_ms_per_call'] / floor_ms:.2f}x the "
+              f"{floor_ms:.3f} ms weight-bytes floor; prefill "
+              f"{r['prefill_ms_per_token']:.4f} ms per prompt token; row 9 "
+              f"{r['launches'].get('onehot_gather', 0)} launches for "
+              f"{r['prefills']} prefills + {r['decode_calls']} decode calls")
     cache = init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
     toks = seeded_ints(cfg.vocab, (LM_SLOTS, 1), dev, SEED)
     prof = profiled_call(
@@ -1791,7 +1839,7 @@ def serve_glm(cfg, dev) -> dict:
         print(f"    {ms:.4f} ms in {count:.0f} x {name}")
     del cache
 
-    print("phase 12b: one prompt's prefill, take against onehot")
+    print(f"phase {phase}b: one prompt's prefill, take against onehot")
     toks = torch.as_tensor(prompts[0], device=dev)[None]
     out = {impl: prefill(model, dataclasses.replace(cfg, gather_impl=impl),
                          {"tokens": toks}, LM_MAX_LEN)
@@ -1803,42 +1851,45 @@ def serve_glm(cfg, dev) -> dict:
         torch.equal(ct["blocks"][n][k], co["blocks"][n][k])
         for n, k in leaves)
     print(f"  {toks.shape[1]} tokens: logits and {len(leaves)} cache leaves "
-          f"{tuple(ct['blocks']['b0']['k'].shape)} bitwise equal: {same}")
+          f"({sorted({k for _, k in leaves})}) bitwise equal: {same}")
     if not same:
         fail("the take and onehot prefills differ")
     del out, ct, co
 
-    print(f"phase 12e: a forward of {GLM_FORWARD[0]}x{GLM_FORWARD[1]} "
-          f"tokens (attn_chunk {cfg.attn_chunk}: the chunked path)")
-    B, S = GLM_FORWARD
+    B, S = fwd_shape
+    print(f"phase {phase}{fwd_label}: a forward of {B}x{S} tokens")
     toks = seeded_ints(cfg.vocab, (B, S), dev, SEED)
-    chunked = []
-    orig = attn._chunked_attention
+    calls = []
+    module, name = counted_fn
+    orig = getattr(module, name)
 
     def counted(*a, **k):
-        chunked.append(1)
+        calls.append(1)
         return orig(*a, **k)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with patched(attn, "_chunked_attention", counted):
+    with patched(module, name, counted):
         t0 = time.perf_counter()
-        logits, _ = forward(model, cfg, {"tokens": toks})
+        logits, aux = forward(model, cfg, {"tokens": toks})
         torch.cuda.synchronize()
         fwd_s = time.perf_counter() - t0
-    if logits.shape != (B, S, cfg.vocab) or len(chunked) != cfg.n_layers \
-            or not bool(torch.isfinite(logits).all()):
-        fail(f"forward of {B}x{S}: {tuple(logits.shape)}, "
-             f"{len(chunked)} chunked layers, or non-finite logits")
-    print(f"  {fwd_s:.3f} s, {B * S / fwd_s:.1f} tokens/s, {len(chunked)} "
-          f"layers on the chunked path; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if logits.shape != (B, S, cfg.vocab) or len(calls) != want_counted \
+            or not bool(torch.isfinite(logits).all()) \
+            or not bool(torch.isfinite(aux)):
+        fail(f"forward of {B}x{S}: {tuple(logits.shape)}, {len(calls)} "
+             f"calls of {name} (want {want_counted}), or non-finite logits "
+             f"or aux loss")
+    print(f"  {fwd_s:.3f} s, {B * S / fwd_s:.1f} tokens/s, {len(calls)} "
+          f"calls of {name}, aux loss {float(aux):.4f}; peak memory "
+          f"{peak:.2f} GiB")
     del logits, model
     torch.cuda.empty_cache()
     return {"n_params": n_params, "weight_bytes": wbytes,
-            "floor_ms": floor_ms, "runs": runs,
-            "decode_profiled": prof,
-            "prefill_bitwise": same, "forward_s": fwd_s}
+            "floor_ms": floor_ms, "runs": runs, "decode_profiled": prof,
+            "prefill_bitwise": same, "forward_s": fwd_s,
+            "forward_peak_gib": peak}
 
 
 def check_depth_cut(cfg, dev) -> dict:
@@ -2020,10 +2071,161 @@ def run_families(dev) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# jamba-v0.1-52b and the MoE families (phase 13)
+# ----------------------------------------------------------------------
+
+def check_mamba_moe(cfg, dev) -> dict:
+    """Phase 13d: one Mamba mixer and one MoE layer at ``cfg``'s widths in
+    float32 from SEED, three checks, each with a planted fault that must
+    break its bound in the same run: a prefill then steps against one
+    forward (the conv carry one token late must break it), a forward in
+    chunks of 256 against one chunk (the carry dropped at the chunk
+    boundaries must), and ``scatter`` against ``einsum`` on a prompt
+    whose capacity drops assignments (one more assignment kept in each
+    full expert must)."""
+    from repro_torch.models import moe, ssm
+    from repro_torch.models.layers import Params
+
+    res = {}
+    f32 = dataclasses.replace(cfg, param_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    mixer = Params(torch.float32, dev, gen)
+    ssm.init_mamba(mixer, f32)
+    with torch.no_grad():                 # a non-trivial step size
+        mixer["dt_bias"].normal_(generator=gen)
+    S, k = MAMBA_SPLIT
+    x = seeded_normal((MAMBA_B, S + k, cfg.d_model), dev, SEED)
+    f = dict(dtype=torch.float32)
+    full = ssm.mamba_forward(mixer, f32, x, **f)
+
+    def stepped(late: bool):
+        out, cache = ssm.mamba_forward(mixer, f32, x[:, :S], return_state=True,
+                                       **f)
+        if late:                          # the carry of S - 1 tokens
+            _, short = ssm.mamba_forward(mixer, f32, x[:, :S - 1],
+                                         return_state=True, **f)
+            cache = dict(cache, conv=short["conv"])
+        outs = [out]
+        for t in range(S, S + k):
+            y, cache = ssm.mamba_step(mixer, f32, x[:, t:t + 1], cache, **f)
+            outs.append(y)
+        return torch.cat(outs, 1)
+
+    good, bad = rel_err(stepped(False), full), rel_err(stepped(True), full)
+    print(f"  Mamba, prefill {S} + {k} steps against a forward over "
+          f"{S + k}: {good:.3e} (bound {MAMBA_TOL:g}); the conv carry one "
+          f"token late: {bad:.3e}")
+    if not good <= MAMBA_TOL < bad:
+        fail(f"13d Mamba steps: {good:.3e} and the late carry {bad:.3e} "
+             f"against {MAMBA_TOL:g}")
+    res["mamba_steps"] = {"err": good, "fault_err": bad, "bound": MAMBA_TOL}
+    del full, x
+
+    x = seeded_normal((1, MAMBA_CHUNKS_S, cfg.d_model), dev, SEED + 1)
+    one = ssm.mamba_forward(mixer, f32, x, chunk=MAMBA_CHUNKS_S, **f)
+    chunked = ssm.mamba_forward(mixer, f32, x, chunk=256, **f)
+    orig = ssm._ssm_scan_chunk
+
+    def dropped(dA, dBx, h0):
+        return orig(dA, dBx, torch.zeros_like(h0))
+
+    with patched(ssm, "_ssm_scan_chunk", dropped):
+        no_carry = ssm.mamba_forward(mixer, f32, x, chunk=256, **f)
+    good, bad = rel_err(chunked, one), rel_err(no_carry, one)
+    print(f"  Mamba, {MAMBA_CHUNKS_S} tokens in chunks of 256 against one "
+          f"chunk: {good:.3e} (bound {MAMBA_TOL:g}); the carry dropped: "
+          f"{bad:.3e}")
+    if not good <= MAMBA_TOL < bad:
+        fail(f"13d Mamba chunks: {good:.3e} and no carry {bad:.3e} against "
+             f"{MAMBA_TOL:g}")
+    res["mamba_chunks"] = {"err": good, "fault_err": bad, "bound": MAMBA_TOL}
+    del mixer, x, one, chunked, no_carry
+    torch.cuda.empty_cache()
+
+    layer = Params(torch.float32, dev, gen)
+    moe.init_moe(layer, f32)
+    mcfg = dataclasses.replace(f32, capacity_factor=MOE_CF)
+    x = seeded_normal((1, MOE_TOKENS, cfg.d_model), dev, SEED + 2)
+    _, _, idx = moe._route(layer, mcfg, x[0])
+    C = moe.moe_capacity(mcfg, MOE_TOKENS)
+    n_drop = int((moe._positions_in_expert(idx.reshape(-1), cfg.n_experts)
+                  >= C).sum())
+    scat, aux_s = moe.moe_forward(layer, mcfg, x, impl="scatter", **f)
+    ein, aux_e = moe.moe_forward(layer, mcfg, x, impl="einsum", **f)
+    with patched(moe, "moe_capacity", lambda c, n: C + 1):
+        kept, _ = moe.moe_forward(layer, mcfg, x, impl="scatter", **f)
+    good, bad = rel_err(scat, ein), rel_err(kept, ein)
+    print(f"  MoE, {MOE_TOKENS} tokens at capacity_factor {MOE_CF} (C = {C}): "
+          f"{n_drop} of {MOE_TOKENS * cfg.top_k} assignments drop; scatter "
+          f"against einsum {good:.3e} (bound {MOE_TOL:g}), aux "
+          f"{float(aux_s):.6f} / {float(aux_e):.6f}; one more kept per full "
+          f"expert: {bad:.3e}")
+    if n_drop == 0 or not good <= MOE_TOL < bad \
+            or float(aux_s) != float(aux_e):
+        fail(f"13d MoE: {n_drop} drops, {good:.3e} and the kept overflow "
+             f"{bad:.3e} against {MOE_TOL:g}")
+    res["moe"] = {"err": good, "fault_err": bad, "bound": MOE_TOL,
+                  "capacity": C, "dropped": n_drop,
+                  "assignments": MOE_TOKENS * cfg.top_k}
+    del layer, x, scat, ein, kept
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_moe_families(dev) -> dict:
+    """Phase 13e: each of MOE_FAMILIES at its published widths cut in
+    depth, bfloat16 from SEED: a prefill of MOE_PROMPT tokens and
+    LM_DECODE_STEPS decode steps (:func:`run_family`), each model freed
+    before the next."""
+    from repro_torch.configs import ARCHS
+
+    res = {}
+    for name, depth in MOE_FAMILIES:
+        cfg = dataclasses.replace(ARCHS[name], n_layers=depth)
+        print(f"  {name} cut to {depth} of {ARCHS[name].n_layers} layers "
+              f"({cfg.n_experts} experts, top {cfg.top_k}, expert d_ff "
+              f"{cfg.moe_d_ff})")
+        res[name] = run_family(
+            cfg, dev, {"tokens": seeded_ints(cfg.vocab, (1, MOE_PROMPT), dev,
+                                             SEED)},
+            MOE_PROMPT + 64, MOE_PROMPT)
+    return res
+
+
+def run_jamba(cfg, dev, card: str) -> dict:
+    """Phase 13 on ``cfg`` (jamba-v0.1-52b cut to JAMBA_DEPTH layers) and
+    the MoE families."""
+    import repro_torch.models.ssm as ssm
+
+    print(f"phase 13: {cfg.name} at full width, {cfg.n_layers} layers "
+          f"(one period)")
+    B, S = JAMBA_FORWARD
+    n_mamba = sum(cfg.block_pattern[i % cfg.period] == "mamba"
+                  for i in range(cfg.n_layers))
+    jam = serve_full(cfg, dev, 13, "c", JAMBA_FORWARD,
+                     (ssm, "_ssm_scan_chunk"), n_mamba * S // 256)
+    print(f"phase 13d: one Mamba mixer and one MoE layer at {cfg.name}'s "
+          f"widths, float32")
+    chk = check_mamba_moe(cfg, dev)
+    print("phase 13e: qwen3-moe-235b-a22b and kimi-k2-1t-a32b at full "
+          "width, bfloat16")
+    fam = run_moe_families(dev)
+    print(json.dumps({"jamba_detail": {
+        "card": card, **{k: v for k, v in jam.items() if k != "runs"},
+        "served": {i: {k_: v for k_, v in r.items() if k_ != "out"}
+                   for i, r in jam["runs"].items()},
+        "float32_checks": chk, "families": fam}}))
+    return jam
+
+
 def run_glm(cfg, dev, card: str) -> dict:
     """Phase 12 on ``cfg`` (chatglm3-6b), whisper-small and qwen2-vl-2b."""
+    import repro_torch.models.attention as attn
+
     print(f"phase 12: {cfg.name} at full width")
-    glm = serve_glm(cfg, dev)
+    glm = serve_full(cfg, dev, 12, "e", GLM_FORWARD,
+                     (attn, "_chunked_attention"), cfg.n_layers)
     print(f"phase 12c: {cfg.name}, float32")
     cut = check_depth_cut(cfg, dev)
     print("phase 12d: whisper-small and qwen2-vl-2b at full width, bfloat16")
@@ -2036,9 +2238,10 @@ def run_glm(cfg, dev, card: str) -> dict:
     return glm
 
 
-def run_lm(cfg, glm_cfg, dev, card: str) -> list:
+def run_lm(cfg, glm_cfg, jamba_cfg, dev, card: str) -> list:
     """Phases 9-11 on ``cfg`` (xlstm-125m), phase 9 also at ``glm_cfg``'s
-    table, and phase 12 on ``glm_cfg`` (chatglm3-6b); prints the details
+    table, phase 12 on ``glm_cfg`` (chatglm3-6b) and phase 13 on
+    ``jamba_cfg`` (jamba-v0.1-52b one period deep); prints the details
     and returns the ``kernels`` entries of rows 9 and 10."""
     print(f"phase 9: the row gather vs plain at V={cfg.vocab}, "
           f"D={cfg.d_model}")
@@ -2051,11 +2254,13 @@ def run_lm(cfg, glm_cfg, dev, card: str) -> list:
     print(f"phase 11: {cfg.name} served at full width")
     lm = serve_lm(cfg, dev)
     glm = run_glm(glm_cfg, dev, card)
+    jam = run_jamba(jamba_cfg, dev, card)
     src = "src/repro_torch/kernels/csrc/"
     g4 = gat[("bfloat16", GATHER_NS[0])]
     s4 = rec[(LM_SLOTS, 1, 0.0)]
     by_path = {c.name: m["runs"]["onehot"]["launches"].get(
-        "onehot_gather", 0) for c, m in ((cfg, lm), (glm_cfg, glm))}
+        "onehot_gather", 0)
+        for c, m in ((cfg, lm), (glm_cfg, glm), (jamba_cfg, jam))}
     k = [{"name": "onehot_gather", "route": "cuda",
           "source": src + "gather.cu",
           "replaces": "src/repro/kernels/gather.py:36",
@@ -2124,7 +2329,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     record = run(Geometry(), dev, card, build_s)
     from repro_torch.configs import ARCHS
-    record["kernels"] += run_lm(ARCHS[LM_ARCH], ARCHS[GLM_ARCH], dev, card)
+    record["kernels"] += run_lm(
+        ARCHS[LM_ARCH], ARCHS[GLM_ARCH],
+        dataclasses.replace(ARCHS[JAMBA_ARCH], n_layers=JAMBA_DEPTH), dev,
+        card)
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

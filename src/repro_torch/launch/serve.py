@@ -5,10 +5,10 @@ same reduced config, plus ``--device``, the card by default):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
         --requests 8 --slots 4
 
-The port serves the architectures whose blocks it has ported: every one
-but jamba-v0.1-52b (Mamba), qwen3-moe-235b-a22b and kimi-k2-1t-a32b
-(MoE), which raise ``NotImplementedError``.  The encoder-decoder
-(whisper-small) needs audio frames the launcher does not make.
+Every architecture serves at its ``reduced()`` widths, jamba-v0.1-52b
+(Mamba and MoE), qwen3-moe-235b-a22b and kimi-k2-1t-a32b (MoE) among
+them, but for the encoder-decoder (whisper-small), which needs audio
+frames the launcher does not make.
 """
 
 from __future__ import annotations

@@ -1,18 +1,17 @@
 """Residual blocks, counterpart of ``repro/models/blocks.py``: a
-pre-normed mixer (``attn``, ``mlstm`` or ``slstm``), a cross-attention
-sub-block in the decoder of an encoder-decoder, and a pre-normed MLP
-(``d_ff > 0``), each with a residual.  Three entry points, as the
-reference's:
+pre-normed mixer (``attn``, ``mamba``, ``mlstm`` or ``slstm``), a
+cross-attention sub-block in the decoder of an encoder-decoder, and a
+pre-normed FFN, each with a residual: the MoE layer where ``use_moe``,
+else the MLP (``d_ff > 0``).  Three entry points, as the reference's:
 
-* :func:`block_forward` — full sequence
+* :func:`block_forward` — full sequence; returns (x, MoE aux loss)
 * :func:`block_prefill` — full sequence, also returns the decode cache
   (an attention block's KV cache padded to ``max_len``, in the compute
-  dtype or int8)
+  dtype or int8; a recurrent block's state): (x, cache, aux loss)
 * :func:`block_step`    — one token with cache, at position ``index``
 
-The ``mamba`` kind and MoE raise :class:`NotImplementedError` naming the
-ROADMAP item that ports them.  Without MoE the reference's auxiliary
-loss is 0, so the port's blocks return none.
+Without MoE the aux loss is ``None`` (the reference's is a zero; the
+model sums only the MoE layers', and a decode step makes none).
 """
 
 from __future__ import annotations
@@ -24,30 +23,25 @@ from .attention import (_kv_quant, attention_cross_step, attention_decode,
                         attention_train, init_attention, init_kv_cache)
 from .layers import Params, activation, apply_norm, dense, init_dense, \
     init_norm
-from .ssm import (init_mlstm, init_mlstm_cache, init_slstm,
-                  init_slstm_cache, mlstm_forward, mlstm_step,
+from .moe import init_moe, moe_forward
+from .ssm import (init_mamba, init_mamba_cache, init_mlstm,
+                  init_mlstm_cache, init_slstm, init_slstm_cache,
+                  mamba_forward, mamba_step, mlstm_forward, mlstm_step,
                   slstm_forward, slstm_step)
 
 __all__ = ["init_mlp", "mlp_forward", "init_block", "init_block_cache",
-           "block_forward", "block_prefill", "block_step", "unported"]
+           "block_forward", "block_prefill", "block_step"]
 
-# What each unported block kind or feature waits for.
-_UNPORTED = {
-    "mamba": "the Mamba mixer (ROADMAP Queue 1, item 5)",
-    "moe": "MoE (ROADMAP Queue 1, item 6)",
+# Each mixer kind: (init, init_cache, forward, step).
+_MIXERS = {
+    "mamba": (init_mamba, init_mamba_cache, mamba_forward, mamba_step),
+    "mlstm": (init_mlstm, init_mlstm_cache, mlstm_forward, mlstm_step),
+    "slstm": (init_slstm, init_slstm_cache, slstm_forward, slstm_step),
 }
-_KINDS = ("attn", "mlstm", "slstm")
-
-
-def unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; it comes with "
-                               f"{_UNPORTED[what]}")
 
 
 def _check(kind: str):
-    if kind not in _KINDS:
-        if kind in _UNPORTED:
-            raise unported(kind)
+    if kind != "attn" and kind not in _MIXERS:
         raise ValueError(f"unknown mixer kind {kind!r}")
 
 
@@ -74,31 +68,40 @@ def mlp_forward(params, cfg, x, dtype) -> torch.Tensor:
     return dense(params, "w_down", h, dtype)
 
 
-def _ffn_part(params, cfg, x, dtype) -> torch.Tensor:
-    if cfg.d_ff:
+def _ffn_part(params, cfg, x, use_moe: bool, moe_impl: str, dtype):
+    """The FFN sub-block: (x, MoE aux loss or None)."""
+    aux = None
+    if use_moe:
+        h = apply_norm(params, "ln2", x, cfg.norm)
+        y, aux = moe_forward(params["moe"], cfg, h, impl=moe_impl,
+                             dtype=dtype)
+        x = x + y
+    elif cfg.d_ff:
         h = apply_norm(params, "ln2", x, cfg.norm)
         x = x + mlp_forward(params["mlp"], cfg, h, dtype)
-    return x
+    return x, aux
 
 
 # ----------------------------------------------------------------------
 # Init
 # ----------------------------------------------------------------------
 
-def init_block(p: Params, cfg, kind: str, cross: bool = False):
+def init_block(p: Params, cfg, kind: str, use_moe: bool,
+               cross: bool = False):
     _check(kind)
     init_norm(p, "ln1", cfg.d_model, cfg.norm)
     mixer = p.sub("mixer")
     if kind == "attn":
         init_attention(mixer, cfg)
-    elif kind == "mlstm":
-        init_mlstm(mixer, cfg)
     else:
-        init_slstm(mixer, cfg)
+        _MIXERS[kind][0](mixer, cfg)
     if cross:
         init_norm(p, "lnx", cfg.d_model, cfg.norm)
         init_attention(p.sub("cross"), cfg, cross=True)
-    if cfg.d_ff:
+    if use_moe:
+        init_norm(p, "ln2", cfg.d_model, cfg.norm)
+        init_moe(p.sub("moe"), cfg)
+    elif cfg.d_ff:
         init_norm(p, "ln2", cfg.d_model, cfg.norm)
         init_mlp(p.sub("mlp"), cfg)
 
@@ -113,10 +116,8 @@ def init_block_cache(cfg, kind: str, batch: int, max_len: int,
     _check(kind)
     if kind == "attn":
         cache = init_kv_cache(cfg, batch, max_len, dtype, device=device)
-    elif kind == "mlstm":
-        cache = init_mlstm_cache(cfg, batch, device=device)
     else:
-        cache = init_slstm_cache(cfg, batch, device=device)
+        cache = _MIXERS[kind][1](cfg, batch, device=device)
     if cross:
         shape = (batch, enc_len, cfg.n_kv_heads, cfg.hd)
         cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
@@ -137,31 +138,33 @@ def _cross(params, cfg, x, positions, enc_out, enc_positions, dtype,
                            return_kv=return_kv)
 
 
-def block_forward(params, cfg, kind: str, x, positions=None, *,
-                  causal: bool = True, cross: bool = False, enc_out=None,
-                  enc_positions=None, dtype=torch.bfloat16) -> torch.Tensor:
+def block_forward(params, cfg, kind: str, use_moe: bool, x, positions=None,
+                  *, causal: bool = True, cross: bool = False, enc_out=None,
+                  enc_positions=None, moe_impl: str = "scatter",
+                  dtype=torch.bfloat16):
+    """Full sequence: (x, aux loss)."""
     _check(kind)
     h = apply_norm(params, "ln1", x, cfg.norm)
     m = params["mixer"]
     if kind == "attn":
         mix = attention_train(m, cfg, h, positions, causal=causal,
                               dtype=dtype)
-    elif kind == "mlstm":
-        mix = mlstm_forward(m, cfg, h, dtype=dtype)
     else:
-        mix = slstm_forward(m, cfg, h, dtype=dtype)
+        mix = _MIXERS[kind][2](m, cfg, h, dtype=dtype)
     x = x + mix
     if cross:
         x = x + _cross(params, cfg, x, positions, enc_out, enc_positions,
                        dtype)
-    return _ffn_part(params, cfg, x, dtype)
+    return _ffn_part(params, cfg, x, use_moe, moe_impl, dtype)
 
 
-def block_prefill(params, cfg, kind: str, x, positions=None,
+def block_prefill(params, cfg, kind: str, use_moe: bool, x, positions=None,
                   max_len: int = 0, *, cross: bool = False, enc_out=None,
-                  enc_positions=None, dtype=torch.bfloat16):
+                  enc_positions=None, moe_impl: str = "scatter",
+                  dtype=torch.bfloat16):
     """Forward and the decode cache (the sequence fills ``[0, S)`` of an
-    attention block's ``max_len`` positions; the rest are zeros)."""
+    attention block's ``max_len`` positions; the rest are zeros): (x,
+    cache, aux loss)."""
     _check(kind)
     S = x.shape[1]
     if kind == "attn" and max_len < S:
@@ -181,26 +184,25 @@ def block_prefill(params, cfg, kind: str, x, positions=None,
         else:
             cache = {"k": F.pad(k, pad).to(dtype),
                      "v": F.pad(v, pad).to(dtype)}
-    elif kind == "mlstm":
-        mix, cache = mlstm_forward(m, cfg, h, dtype=dtype,
-                                   return_state=True)
     else:
-        mix, cache = slstm_forward(m, cfg, h, dtype=dtype,
-                                   return_state=True)
+        mix, cache = _MIXERS[kind][2](m, cfg, h, dtype=dtype,
+                                      return_state=True)
     x = x + mix
     if cross:
         y, (ck, cv) = _cross(params, cfg, x, positions, enc_out,
                              enc_positions, dtype, return_kv=True)
         x = x + y
         cache = dict(cache, cross_k=ck.to(dtype), cross_v=cv.to(dtype))
-    return _ffn_part(params, cfg, x, dtype), cache
+    x, aux = _ffn_part(params, cfg, x, use_moe, moe_impl, dtype)
+    return x, cache, aux
 
 
-def block_step(params, cfg, kind: str, x, cache: dict, index=0, *,
-               cross: bool = False, dtype=torch.bfloat16):
+def block_step(params, cfg, kind: str, use_moe: bool, x, cache: dict,
+               index=0, *, cross: bool = False, moe_impl: str = "scatter",
+               dtype=torch.bfloat16):
     """One-token decode step.  ``x``: (B, 1, d); ``index``, the position,
     is the attention kind's (the recurrent kinds carry it in their
-    state)."""
+    state).  Returns (x, new cache)."""
     _check(kind)
     h = apply_norm(params, "ln1", x, cfg.norm)
     m = params["mixer"]
@@ -209,10 +211,8 @@ def block_step(params, cfg, kind: str, x, cache: dict, index=0, *,
     if kind == "attn":
         mix, new_cache = attention_decode(m, cfg, h, mix_cache, index,
                                           dtype=dtype)
-    elif kind == "mlstm":
-        mix, new_cache = mlstm_step(m, cfg, h, mix_cache, dtype=dtype)
     else:
-        mix, new_cache = slstm_step(m, cfg, h, mix_cache, dtype=dtype)
+        mix, new_cache = _MIXERS[kind][3](m, cfg, h, mix_cache, dtype=dtype)
     x = x + mix
     if cross:
         h = apply_norm(params, "lnx", x, cfg.norm)
@@ -221,4 +221,5 @@ def block_step(params, cfg, kind: str, x, cache: dict, index=0, *,
                                      dtype=dtype)
         new_cache = dict(new_cache, cross_k=cache["cross_k"],
                          cross_v=cache["cross_v"])
-    return _ffn_part(params, cfg, x, dtype), new_cache
+    x, _ = _ffn_part(params, cfg, x, use_moe, moe_impl, dtype)
+    return x, new_cache

@@ -24,10 +24,10 @@ Entry points, as the reference's (no remat; the port does not train):
 * :func:`decode_step`  -> (logits, cache)
 * :func:`init_cache`   -> decode cache
 
-A config with a ``mamba`` block or MoE raises
-:class:`NotImplementedError` naming the ROADMAP item.  The reference's
-``dist/sharding.shard_constraint`` is the identity without a mesh and
-has no counterpart yet.
+MoE replaces the MLP in the pattern slots :func:`_moe_flags` names
+(``moe_impl`` chooses its dispatch, as the reference's).  The
+reference's ``dist/sharding.shard_constraint`` is the identity without
+a mesh and has no counterpart yet.
 """
 
 from __future__ import annotations
@@ -39,25 +39,25 @@ from torch import nn
 
 from .._device import resolve_device
 from .blocks import (block_forward, block_prefill, block_step, init_block,
-                     init_block_cache, unported)
+                     init_block_cache)
 from .layers import (DTYPES, Params, apply_norm, dense, embed_lookup,
                      init_dense, init_embed, init_norm, make_positions_mrope,
                      unembed)
 
-__all__ = ["FRONTEND_DIM", "GenericLM", "check_supported", "init_model",
-           "forward", "prefill", "decode_step", "init_cache"]
+__all__ = ["FRONTEND_DIM", "GenericLM", "init_model", "forward", "prefill",
+           "decode_step", "init_cache"]
 
 # Stub modality frontends: precomputed features -> linear adapter.
 FRONTEND_DIM = {"audio": 80, "vision": 1176}
 
 
-def check_supported(cfg) -> None:
-    """Raise :class:`NotImplementedError` for what the port cannot run
-    yet: the ``mamba`` block kind and MoE."""
-    if "mamba" in cfg.block_pattern:
-        raise unported("mamba")
-    if cfg.moe:
-        raise unported("moe")
+def _moe_flags(cfg) -> tuple:
+    """Whether MoE replaces the MLP, for each slot of the pattern."""
+    if cfg.moe and cfg.period % cfg.moe_every \
+            and cfg.moe_every % cfg.period:
+        raise ValueError("MoE placement must be periodic within the "
+                         "block pattern")
+    return tuple(cfg.moe_at(j) for j in range(cfg.period))
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -72,7 +72,6 @@ class GenericLM(Params):
 
     def __init__(self, cfg, *, device: torch.device,
                  generator: torch.Generator | None):
-        check_supported(cfg)
         super().__init__(compute_dtype(cfg), device, generator)
         self.cfg = cfg
         init_embed(self, cfg.vocab, cfg.d_model, cfg.tie_embeddings)
@@ -80,19 +79,20 @@ class GenericLM(Params):
         if cfg.frontend:
             init_dense(self, "frontend", FRONTEND_DIM[cfg.frontend],
                        cfg.d_model)
+        flags = _moe_flags(cfg)
         self.layers = self._blocks(
-            cfg, [cfg.block_pattern[i % cfg.period]
-                  for i in range(cfg.n_layers)], cfg.enc_dec)
+            cfg, [(cfg.block_pattern[j], flags[j])
+                  for _, _, j, _ in _layers(cfg)], cfg.enc_dec)
         if cfg.enc_dec:
-            self.enc_layers = self._blocks(cfg, ["attn"] * cfg.n_enc_layers,
-                                           False)
+            self.enc_layers = self._blocks(
+                cfg, [("attn", False)] * cfg.n_enc_layers, False)
             init_norm(self, "norm_enc", cfg.d_model, cfg.norm)
 
     def _blocks(self, cfg, kinds, cross: bool) -> nn.ModuleList:
         layers = nn.ModuleList()
-        for kind in kinds:
+        for kind, use_moe in kinds:
             block = Params(*self._init)
-            init_block(block, cfg, kind, cross=cross)
+            init_block(block, cfg, kind, use_moe, cross=cross)
             layers.append(block)
         return layers
 
@@ -184,8 +184,8 @@ def _encode(params: GenericLM, cfg, batch: dict, dtype):
     pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     x = x + _sinusoid(pos, cfg.d_model).to(x.dtype)
     for block in params.enc_layers:
-        x = block_forward(block, cfg, "attn", x, pos, causal=False,
-                          dtype=dtype)
+        x, _ = block_forward(block, cfg, "attn", False, x, pos,
+                             causal=False, dtype=dtype)
     return apply_norm(params, "norm_enc", x, cfg.norm), pos
 
 
@@ -204,18 +204,25 @@ def _context(params, cfg, batch, dtype):
 # Forward / serving
 # ----------------------------------------------------------------------
 
-def forward(params: GenericLM, cfg, batch: dict):
-    """Logits ``(B, S, vocab)`` float32 and the auxiliary loss (0: no
-    MoE) for ``batch["tokens"]`` ``(B, S)`` (plus ``patches`` or
-    ``frames`` for the frontends)."""
+def forward(params: GenericLM, cfg, batch: dict, *,
+            moe_impl: str = "scatter"):
+    """Logits ``(B, S, vocab)`` float32 and the auxiliary loss (the MoE
+    layers' load-balance losses summed, as the reference: per period,
+    then over periods; 0 without MoE) for ``batch["tokens"]`` ``(B, S)``
+    (plus ``patches`` or ``frames`` for the frontends)."""
     dtype = compute_dtype(cfg)
     x, positions, kw = _context(params, cfg, batch, dtype)
-    for i, _, _, kind in _layers(cfg):
-        x = block_forward(params.layers[i], cfg, kind, x, positions,
-                          dtype=dtype, **kw)
+    flags = _moe_flags(cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    auxs = [zero] * cfg.n_periods
+    for i, p, j, kind in _layers(cfg):
+        x, a = block_forward(params.layers[i], cfg, kind, flags[j], x,
+                             positions, moe_impl=moe_impl, dtype=dtype, **kw)
+        if a is not None:
+            auxs[p] = auxs[p] + a
     x = apply_norm(params, "norm_f", x, cfg.norm)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return unembed(params, x, cfg.tie_embeddings, dtype), aux
+    return (unembed(params, x, cfg.tie_embeddings, dtype),
+            torch.stack(auxs).sum())
 
 
 def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0, *,
@@ -224,7 +231,6 @@ def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0, *,
     each attention block's KV cache (the recurrent states have no time
     axis) and ``enc_len`` of the encoder's keys and values."""
     dev = resolve_device(device)
-    check_supported(cfg)
     dtype = compute_dtype(cfg)
     one = {f"b{j}": init_block_cache(cfg, kind, batch, max_len,
                                      cross=cfg.enc_dec, enc_len=enc_len,
@@ -236,22 +242,26 @@ def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0, *,
         for name, leaves in one.items()}}
 
 
-def prefill(params: GenericLM, cfg, batch: dict, max_len: int):
+def prefill(params: GenericLM, cfg, batch: dict, max_len: int, *,
+            moe_impl: str = "scatter"):
     """Run the prompt; return (last-position logits ``(B, 1, vocab)``,
     filled cache).  ``max_len`` is the cache's, as in :func:`init_cache`."""
     dtype = compute_dtype(cfg)
     x, positions, kw = _context(params, cfg, batch, dtype)
+    flags = _moe_flags(cfg)
     caches = {j: [] for j in range(cfg.period)}
     for i, _, j, kind in _layers(cfg):
-        x, cache = block_prefill(params.layers[i], cfg, kind, x, positions,
-                                 max_len, dtype=dtype, **kw)
+        x, cache, _ = block_prefill(params.layers[i], cfg, kind, flags[j],
+                                    x, positions, max_len,
+                                    moe_impl=moe_impl, dtype=dtype, **kw)
         caches[j].append(cache)
     x = apply_norm(params, "norm_f", x, cfg.norm)
     logits = unembed(params, x[:, -1:], cfg.tie_embeddings, dtype)
     return logits, _stack(caches)
 
 
-def decode_step(params: GenericLM, cfg, cache: dict, tokens, index):
+def decode_step(params: GenericLM, cfg, cache: dict, tokens, index, *,
+                moe_impl: str = "scatter"):
     """One token for the whole batch.  ``tokens``: (B, 1); ``index``: the
     position of every row, a Python int (the attention kinds write their
     cache there and rotate by it; the recurrent kinds carry their
@@ -264,11 +274,13 @@ def decode_step(params: GenericLM, cfg, cache: dict, tokens, index):
         pos = torch.full(tuple(tokens.shape), int(index), dtype=torch.int32,
                          device=x.device)
         x = x + _sinusoid(pos, cfg.d_model).to(x.dtype)
+    flags = _moe_flags(cfg)
     caches = {j: [] for j in range(cfg.period)}
     for i, p, j, kind in _layers(cfg):
         cc = {k: v[p] for k, v in cache["blocks"][f"b{j}"].items()}
-        x, nc = block_step(params.layers[i], cfg, kind, x, cc, index,
-                           cross=cfg.enc_dec, dtype=dtype)
+        x, nc = block_step(params.layers[i], cfg, kind, flags[j], x, cc,
+                           index, cross=cfg.enc_dec, moe_impl=moe_impl,
+                           dtype=dtype)
         caches[j].append(nc)
     x = apply_norm(params, "norm_f", x, cfg.norm)
     return unembed(params, x, cfg.tie_embeddings, dtype), _stack(caches)

@@ -1,5 +1,14 @@
-"""xLSTM blocks (mLSTM / sLSTM), counterpart of ``repro/models/ssm.py``.
+"""SSM blocks, counterpart of ``repro/models/ssm.py``: Mamba (S6) and
+xLSTM (mLSTM / sLSTM).
 
+* **Mamba** runs the selective recurrence ``h_t = exp(dt_t A) h_{t-1} +
+  dt_t B_t x_t`` as the reference does: a loop over sequence chunks of
+  ``chunk`` tokens, a log-depth scan inside each chunk, so that memory
+  stays ``O(B * chunk * d_inner * d_state)``.  The reference's in-chunk
+  ``jax.lax.associative_scan`` has no PyTorch counterpart; here it is a
+  Hillis-Steele doubling scan over the chunk axis with the same combine,
+  so the sums round in another order (float32: within 2e-4 of the
+  reference).  Plain PyTorch: the reference has no Pallas kernel for it.
 * **mLSTM** runs the chunkwise-parallel form: within a chunk the matrix
   memory is applied as decayed attention; across chunks a recurrent
   ``(hd x hd)`` state ``C`` and normaliser ``n`` are carried with
@@ -10,9 +19,8 @@
   the plain recurrence on the CPU, in prefill and in every decode step
   (a launch at S = 1 from the cached state).
 
-Mamba comes with ROADMAP Queue 1, item 5.  The ``-inf`` stabiliser starts
-(``m``) give 0, never NaN: ``exp(-inf) = 0`` and every ``m_new`` is
-finite.
+The ``-inf`` stabiliser starts (``m``) give 0, never NaN: ``exp(-inf) =
+0`` and every ``m_new`` is finite.
 """
 
 from __future__ import annotations
@@ -20,18 +28,145 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from ..kernels.slstm_ops import fused_slstm_forward
 from ..kernels.slstm_ref import init_slstm_state, softplus
-from .layers import Params, dense, init_dense
+from .layers import Params, dense, init_dense, silu
 
 __all__ = [
+    "init_mamba", "mamba_forward", "mamba_step", "init_mamba_cache",
     "init_mlstm", "mlstm_forward", "mlstm_step", "init_mlstm_cache",
     "init_slstm", "slstm_forward", "slstm_step", "init_slstm_cache",
 ]
 
 _SLSTM_KEYS = ("c", "n", "h", "m")
+
+
+# ======================================================================
+# Mamba (S6)
+# ======================================================================
+
+def init_mamba(p: Params, cfg):
+    d, di, ds = cfg.d_model, cfg.d_inner, cfg.d_state
+    init_dense(p, "in_proj", d, 2 * di)
+    p.add("conv_w", (cfg.d_conv, di), scale=1.0 / math.sqrt(cfg.d_conv))
+    p.add("conv_b", (di,), init="zeros")
+    init_dense(p, "x_proj", di, 2 * ds + 1)
+    p.add("dt_bias", (di,), init="zeros")
+    p.add("A_log", (di, ds), init="ones")
+    p.add("D", (di,), init="ones")
+    init_dense(p, "out_proj", di, d)
+
+
+def _mamba_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                carry: torch.Tensor | None = None):
+    """Depthwise causal conv along the sequence, its ``K`` taps summed in
+    tap order.  ``x``: (B, S, di); ``carry``: the ``K - 1`` inputs before
+    ``x`` (zeros without one).  Returns (out, the last ``K - 1``
+    inputs)."""
+    K, S = w.shape[0], x.shape[1]
+    if carry is None:
+        carry = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
+    xp = torch.cat([carry, x], dim=1)
+    out = xp[:, 0:S] * w[0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + S] * w[i]
+    return out + b, (xp[:, -(K - 1):] if K > 1 else carry)
+
+
+def _ssm_scan_chunk(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor):
+    """Scan of ``h_t = dA_t * h_{t-1} + dBx_t`` over a chunk.
+
+    ``dA``, ``dBx``: (B, C, di, ds); ``h0``: (B, di, ds).  A doubling
+    scan: after the round at offset ``o`` each position holds the
+    combination of the ``2 o`` positions up to it, ``combine(a, b) =
+    (a0 b0, b0 a1 + b1)`` with ``a`` the earlier (the reference's).
+    Returns (states (B, C, di, ds), h_last)."""
+    C = dA.shape[1]
+    off = 1
+    while off < C:
+        dBx = torch.cat([dBx[:, :off],
+                         dA[:, off:] * dBx[:, :-off] + dBx[:, off:]], dim=1)
+        dA = torch.cat([dA[:, :off], dA[:, :-off] * dA[:, off:]], dim=1)
+        off *= 2
+    states = dA * h0[:, None] + dBx
+    return states, states[:, -1]
+
+
+def _mamba_in(params, cfg, x, dtype, carry=None):
+    """The mixer up to the recurrence: (x after the conv and silu in
+    ``dtype``, z, B, C, dt (float32), A, the conv's carry)."""
+    ds = cfg.d_state
+    xi, z = dense(params, "in_proj", x, dtype).chunk(2, dim=-1)
+    xi, conv = _mamba_conv(xi, params["conv_w"].to(dtype),
+                           params["conv_b"].to(dtype), carry)
+    xi = silu(xi)
+    bcd = dense(params, "x_proj", xi, dtype).float()
+    # dt is one value a token, broadcast over d_inner by dt_bias (as the
+    # reference's x_proj of 2 * ds + 1 outputs).
+    Bm, Cm, dt = bcd[..., :ds], bcd[..., ds:2 * ds], bcd[..., -1:]
+    dt = softplus(dt + params["dt_bias"].float())
+    A = -torch.exp(params["A_log"].float())               # (di, ds)
+    return xi, z, Bm, Cm, dt, A, conv
+
+
+def _mamba_out(params, xi, y, z, dtype):
+    y = y + xi.float() * params["D"].float()
+    return dense(params, "out_proj", y.to(dtype) * silu(z), dtype)
+
+
+def mamba_forward(params, cfg, x: torch.Tensor, *, chunk: int = 256,
+                  dtype=torch.bfloat16, return_state: bool = False):
+    """Full-sequence selective SSM.  ``x``: (B, S, d) -> (B, S, d).
+
+    A loop over chunks of ``chunk`` tokens (one chunk of ``S`` where
+    ``chunk`` does not divide ``S``, as the reference), carrying ``h``.
+    ``return_state=True`` also returns the decode cache after the last
+    token: the conv's last inputs in float32 and ``h``."""
+    B, S, _ = x.shape
+    xi, z, Bm, Cm, dt, A, conv = _mamba_in(params, cfg, x, dtype)
+    xf = xi.float()
+    if S % chunk:
+        chunk = S
+    h = torch.zeros((B, cfg.d_inner, cfg.d_state), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        dtb = dt[:, sl]
+        dA = torch.exp(dtb[..., None] * A)                 # (B, C, di, ds)
+        dBx = (dtb * xf[:, sl])[..., None] * Bm[:, sl, None, :]
+        states, h = _ssm_scan_chunk(dA, dBx, h)
+        ys.append(torch.einsum("bcds,bcs->bcd", states, Cm[:, sl]))
+        del dA, dBx, states
+    out = _mamba_out(params, xi, torch.cat(ys, dim=1), z, dtype)
+    if return_state:
+        return out, {"conv": conv.float(), "h": h}
+    return out
+
+
+def init_mamba_cache(cfg, batch: int, dtype=torch.float32, *,
+                     device) -> dict:
+    return {
+        "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner),
+                            dtype=dtype, device=device),
+        "h": torch.zeros((batch, cfg.d_inner, cfg.d_state),
+                         dtype=torch.float32, device=device),
+    }
+
+
+def mamba_step(params, cfg, x: torch.Tensor, cache: dict, *,
+               dtype=torch.bfloat16):
+    """Single-token recurrent step.  ``x``: (B, 1, d); the cached conv
+    inputs are cast to ``dtype`` and stored back in their own dtype."""
+    xi, z, Bm, Cm, dt, A, conv = _mamba_in(
+        params, cfg, x, dtype, carry=cache["conv"].to(dtype))
+    xf = xi.float()[:, 0]                                  # (B, di)
+    dA = torch.exp(dt[:, 0, :, None] * A)                  # (B, di, ds)
+    h = cache["h"] * dA + (dt[:, 0] * xf)[..., None] * Bm[:, 0, None, :]
+    y = torch.einsum("bds,bs->bd", h, Cm[:, 0])[:, None]
+    out = _mamba_out(params, xi, y, z, dtype)
+    return out, {"conv": conv.to(cache["conv"].dtype), "h": h}
 
 
 # ======================================================================
@@ -110,7 +245,7 @@ def mlstm_forward(params, cfg, x: torch.Tensor, *, chunk: int = 128,
         m = m_new
         ys.append(y)
     y = torch.cat(ys, dim=1).reshape(B, S, di).to(dtype)
-    y = y * F.silu(dense(params, "up", x, dtype))
+    y = y * silu(dense(params, "up", x, dtype))
     out = dense(params, "out_proj", y, dtype)
     if return_state:
         return out, {"C": C, "n": nvec, "m": m}
@@ -154,7 +289,7 @@ def mlstm_step(params, cfg, x: torch.Tensor, cache: dict, *,
     den = torch.einsum("bhd,bhd->bh", q, n_new) * scale
     y = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
     y = y.reshape(B, 1, di).to(dtype)
-    y = y * F.silu(dense(params, "up", x, dtype))
+    y = y * silu(dense(params, "up", x, dtype))
     out = dense(params, "out_proj", y, dtype)
     return out, {"C": C_new, "n": n_new, "m": m_new}
 

@@ -15,6 +15,8 @@ slot-based continuous batching over the port's ``prefill`` /
   by ``seed``.  The reference samples with ``jax.random``, so only greedy
   requests serve the same tokens in both packages.
 
+Every architecture of ``repro_torch.configs`` serves: attention (a KV
+cache), Mamba, mLSTM and sLSTM (recurrent states), MoE or the dense MLP.
 On the card the sLSTM recurrence of every prefill and decode step runs
 in kernel row 10, and with ``gather_impl="onehot"`` the embedding in
 kernel row 9.  The splice writes into the cache in place.  One position
@@ -49,11 +51,12 @@ def _masked_decode_step(params, cfg, cache, tokens, index, slot_mask):
     The engine advances slots in groups of equal position index, but
     ``decode_step`` runs the full batch: without the mask every group
     call would also rewrite the cache rows of slots outside the group (an
-    attention block's at the group's index, the wrong position).  Every
-    leaf has the slots on axis 1: the recurrent states (mLSTM/sLSTM, no
-    time axis) and the KV leaves ``(n_periods, B, T, KV, hd)`` alike, so
-    the merge takes whole rows; rows outside the group stay
-    bit-identical.
+    attention block's at the group's index, the wrong position; a
+    recurrent state advanced by a token it never saw).  Every leaf has
+    the slots on axis 1: the recurrent states (Mamba ``conv``/``h``,
+    mLSTM, sLSTM; no time axis) and the KV leaves ``(n_periods, B, T, KV,
+    hd)`` alike, so the merge takes whole rows; rows outside the group
+    stay bit-identical.
     """
     logits, new_cache = decode_step(params, cfg, cache, tokens, index)
 

@@ -756,3 +756,110 @@ def test_attention_model_on_the_card_matches_the_cpu(dev, arch):
     torch.cuda.synchronize()
     assert LAUNCHES["onehot_gather"] == before + 3
     assert all(torch.equal(a, b) for a, b in zip(got, got1))
+
+
+@pytest.mark.parametrize("chunk", [256, 16])
+def test_mamba_scan_on_the_card_equals_the_cpu(dev, chunk):
+    """The Mamba mixer (jamba's reduced widths, float32) on the card
+    against the same code on the CPU at 2e-4: one chunk of 48 tokens, and
+    three chunks of 16 with ``h`` carried; the returned state too."""
+    import copy
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import Params
+
+    cfg = ARCHS["jamba-v0.1-52b"].reduced()
+    cpu = Params(torch.float32, torch.device("cpu"),
+                 torch.Generator().manual_seed(0))
+    ssm.init_mamba(cpu, cfg)
+    with torch.no_grad():
+        cpu["dt_bias"].normal_(generator=torch.Generator().manual_seed(1))
+    x = torch.randn((2, 48, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2))
+    want, ws = ssm.mamba_forward(cpu, cfg, x, chunk=chunk,
+                                 dtype=torch.float32, return_state=True)
+    on_card = copy.deepcopy(cpu).to(dev)
+    got, gs = ssm.mamba_forward(on_card, cfg, x.to(dev), chunk=chunk,
+                                dtype=torch.float32, return_state=True)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    for k in ("conv", "h"):
+        torch.testing.assert_close(gs[k].cpu(), ws[k], rtol=2e-4, atol=2e-4)
+
+
+def test_moe_scatter_on_the_card_drops_what_the_cpu_drops(dev):
+    """MoE ``scatter`` with a capacity that drops: the card's positions in
+    expert and kept set equal the CPU's, and the outputs agree at 2e-4
+    (rows with every assignment dropped exactly zero on both)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Params
+
+    cfg = dataclasses.replace(ARCHS["jamba-v0.1-52b"].reduced(),
+                              capacity_factor=0.25)
+    cpu = Params(torch.float32, torch.device("cpu"),
+                 torch.Generator().manual_seed(3))
+    moe.init_moe(cpu, cfg)
+    x = torch.randn((4, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(4))
+    _, _, idx = moe._route(cpu, cfg, x.reshape(-1, cfg.d_model))
+    pos = moe._positions_in_expert(idx.reshape(-1), cfg.n_experts)
+    C = moe.moe_capacity(cfg, 256)
+    want, waux = moe.moe_forward(cpu, cfg, x, dtype=torch.float32)
+    on_card = copy.deepcopy(cpu).to(dev)
+    _, _, gidx = moe._route(on_card, cfg, x.reshape(-1, cfg.d_model).to(dev))
+    gpos = moe._positions_in_expert(gidx.reshape(-1), cfg.n_experts)
+    assert torch.equal(gidx.cpu(), idx)
+    assert torch.equal(gpos.cpu(), pos)
+    assert int((pos >= C).sum()) > 0
+    got, aux = moe.moe_forward(on_card, cfg, x.to(dev), dtype=torch.float32)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(aux.cpu(), waux, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got.cpu().abs().sum(-1) == 0, want.abs().sum(-1) == 0)
+
+
+@pytest.mark.parametrize("impl", ["take", "onehot"])
+def test_jamba_period_runs_on_the_card(dev, impl):
+    """One period of jamba at small widths (7 Mamba blocks and 1
+    attention block, MoE on every second) in float32 on the card:
+    prefill and three decode steps against the same parameters on the
+    CPU at 2e-4·max(1, max|ref|); under onehot row 9 launches once a
+    call."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import decode_step, init_model, prefill
+
+    cfg = dataclasses.replace(ARCHS["jamba-v0.1-52b"].reduced(), n_layers=8,
+                              gather_impl=impl)
+    model = init_model(cfg, seed=5, device="cpu")
+    on_card = init_model(cfg, seed=5, device="cpu").to(dev)
+    toks = torch.randint(0, cfg.vocab, (2, 20),
+                         generator=torch.Generator().manual_seed(6))
+
+    def run(m, t):
+        outs = []
+        logits, cache = prefill(m, cfg, {"tokens": t}, 32)
+        outs.append(logits)
+        for i in range(3):
+            logits, cache = decode_step(m, cfg, cache, t[:, i:i + 1], 20 + i)
+            outs.append(logits)
+        return outs, cache
+
+    want, wc = run(model, toks)
+    before = LAUNCHES["onehot_gather"]
+    got, gc = run(on_card, toks.to(dev))
+    torch.cuda.synchronize()
+    assert LAUNCHES["onehot_gather"] - before == (4 if impl == "onehot"
+                                                  else 0)
+    for a, b in zip(got, want):
+        tol = 2e-4 * max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=tol)
+    for name, leaves in wc["blocks"].items():
+        for k, v in leaves.items():
+            tol = 2e-4 * max(1.0, float(v.float().abs().max()))
+            torch.testing.assert_close(gc["blocks"][name][k].cpu(), v,
+                                       rtol=0, atol=tol)

@@ -1,19 +1,29 @@
-"""The port's attention architectures against the JAX package on the CPU:
+"""The port's architectures against the JAX package on the CPU:
 chatglm3-6b (RoPE 2d, GQA, qkv bias; also with the int8 KV cache),
 mistral-nemo-12b, internlm2-20b, nemotron-4-15b (squared ReLU),
-qwen2-vl-2b (M-RoPE, a vision patch prefix) and whisper-small (an
-encoder-decoder with sinusoidal positions and cross-attention), each at
-its ``reduced()`` widths, on the same parameters (the reference's seeded
-init carried over by ``convert.lm_params_from_reference``) and the same
-numpy inputs.
+qwen2-vl-2b (M-RoPE, a vision patch prefix), whisper-small (an
+encoder-decoder with sinusoidal positions and cross-attention),
+jamba-v0.1-52b (Mamba and attention, MoE on every second block; also
+with ``capacity_factor=0.25``, so that assignments drop inside the
+model), qwen3-moe-235b-a22b and kimi-k2-1t-a32b (MoE on every block),
+each at its ``reduced()`` widths, on the same parameters (the
+reference's seeded init carried over by
+``convert.lm_params_from_reference``) and the same numpy inputs.
 
-float32: logits of ``forward``, of ``prefill`` and of two
-``decode_step`` s, and every decode-cache leaf, within rtol = atol =
-2e-4 (int8 codes within 1: a division may round the other way where a
-value lies at a half-integer).  The same parameters in bfloat16 within
-5e-2·max(1, max|ref|), per output and per leaf.  Then the serving
-engine on chatglm3-6b.reduced() against the reference's engine, and
-mirrors of ``tests/test_serving_regressions.py`` on the port.
+float32: logits and aux loss of ``forward``, logits of ``prefill`` and
+of two ``decode_step`` s, and every decode-cache leaf, within rtol =
+atol = 2e-4 (int8 codes within 1: a division may round the other way
+where a value lies at a half-integer).  The same parameters in bfloat16
+within 5e-2·max(1, max|ref|), per output and per leaf, against the
+reference run op by op (``jax.disable_jit()``): each jnp operation then
+rounds to bfloat16 as written, where XLA's compiled CPU code fuses some
+bfloat16 chains and rounds them once.  That difference alone, under the
+same expert choices, moves reduced jamba's Mamba states past the bound,
+and it flips MoE routers whose top-k margins are that small, while the port
+holds the op-by-op reference well inside it.  Then the
+serving engine on chatglm3-6b.reduced() and jamba-v0.1-52b.reduced()
+against the reference's engine, and mirrors of
+``tests/test_serving_regressions.py`` on the port.
 """
 
 import dataclasses
@@ -37,12 +47,14 @@ from repro_torch.models.model import FRONTEND_DIM
 from repro_torch.serving import Request, ServingEngine
 from repro_torch.serving.engine import _masked_decode_step
 
-# (architecture, config overrides): the six formerly unported ones, and
-# chatglm3 with the int8 KV cache.
+# (architecture, config overrides): the nine beside xlstm-125m, chatglm3
+# with the int8 KV cache, and jamba with a capacity that drops.
 CASES = [("chatglm3-6b", {}), ("chatglm3-6b", {"kv_cache_dtype": "int8"}),
          ("mistral-nemo-12b", {}), ("internlm2-20b", {}),
-         ("nemotron-4-15b", {}), ("qwen2-vl-2b", {}), ("whisper-small", {})]
-IDS = [a + ("-int8" if o else "") for a, o in CASES]
+         ("nemotron-4-15b", {}), ("qwen2-vl-2b", {}), ("whisper-small", {}),
+         ("jamba-v0.1-52b", {}), ("jamba-v0.1-52b", {"capacity_factor": 0.25}),
+         ("qwen3-moe-235b-a22b", {}), ("kimi-k2-1t-a32b", {})]
+IDS = [a + "".join(f"-{v}" for v in o.values()) for a, o in CASES]
 TOL = dict(rtol=2e-4, atol=2e-4)
 B, S, MAX_LEN = 2, 12, 24
 N_PATCHES, N_FRAMES = 4, 16
@@ -115,15 +127,23 @@ def _check_cache(got, want, dtype):
 
 
 def _run_both(pair, dtype):
-    """forward, prefill and two decode steps on both packages; returns
-    [(what, port output, reference output)] and the caches."""
+    """forward, prefill and two decode steps on both packages (the
+    reference op by op in bfloat16); returns [(what, port output,
+    reference output)] and the caches."""
+    with jax.disable_jit(dtype == "bfloat16"):
+        return _run_pair(pair)
+
+
+def _run_pair(pair):
     rcfg, params, cfg, port = pair
     batch = _batch(cfg)
     out = []
-    want, _ = ref_model.forward(params, rcfg, batch, remat=False)
+    want, want_aux = ref_model.forward(params, rcfg, batch, remat=False)
     got, aux = forward(port, cfg, batch)
-    assert float(aux) == 0.0
+    if not cfg.moe:
+        assert float(aux) == 0.0
     out.append(("forward", got, want))
+    out.append(("aux", aux, want_aux))
     wl, wc = ref_model.prefill(params, rcfg, batch, max_len=MAX_LEN)
     gl, gc = prefill(port, cfg, batch, max_len=MAX_LEN)
     out.append(("prefill", gl, wl))
@@ -150,6 +170,25 @@ def test_forward_prefill_decode_match_reference(pairs, arch, over, dtype):
         _check(got, want, dtype, what)
     for what, got, want in caches:
         _check_cache(got, want, dtype)
+
+
+def test_capacity_case_drops_assignments(pairs, monkeypatch):
+    """The jamba case with capacity_factor 0.25 drops assignments in every
+    MoE layer of its forward (so the case above holds the drop rule)."""
+    from repro_torch.models import moe
+
+    _, _, cfg, port = pairs("jamba-v0.1-52b", {"capacity_factor": 0.25})
+    orig, drops = moe._positions_in_expert, []
+
+    def spy(e_flat, E):
+        pos = orig(e_flat, E)
+        C = moe.moe_capacity(cfg, e_flat.shape[0] // cfg.top_k)
+        drops.append(int((pos >= C).sum()))
+        return pos
+
+    monkeypatch.setattr(moe, "_positions_in_expert", spy)
+    forward(port, cfg, _batch(cfg))
+    assert len(drops) == cfg.n_layers // 2 and min(drops) > 0, drops
 
 
 @pytest.mark.parametrize("arch,over", CASES, ids=IDS)
@@ -358,3 +397,28 @@ def test_serve_launcher_on_an_attention_model(capsys):
                        "4"])
     assert [len(r.out_tokens) for r in reqs] == [4, 4, 4]
     assert "3 reqs x 2 slots" in capsys.readouterr().out
+
+
+def test_serve_launcher_on_jamba(capsys):
+    """The launcher serves the hybrid Mamba/attention MoE model too."""
+    reqs = serve.main(["--arch", "jamba-v0.1-52b", "--device", "cpu",
+                       "--requests", "3", "--slots", "2", "--max-tokens",
+                       "4"])
+    assert [len(r.out_tokens) for r in reqs] == [4, 4, 4]
+    assert "3 reqs x 2 slots" in capsys.readouterr().out
+
+
+def test_jamba_greedy_tokens_equal_the_reference_engine(pairs):
+    """jamba-v0.1-52b.reduced() (Mamba states and a KV cache merged by
+    slot mask, MoE in every second block) through continuous batching:
+    the reference engine's greedy tokens, and its cache at the end."""
+    _, params, cfg, port = pairs("jamba-v0.1-52b", {})
+    prompts = _prompts(cfg)
+    ref = RefEngine(REF_ARCHS["jamba-v0.1-52b"].reduced(), params,
+                    n_slots=2, max_len=64)
+    want = _serve(ref, RefRequest, prompts, max_tokens=6)
+    eng = _engine(port, cfg, n_slots=2)
+    got = _serve(eng, Request, prompts, max_tokens=6)
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
+    assert all(r.done for r in got)
+    _check_cache(eng.cache, ref.cache, "float32")

@@ -22,8 +22,8 @@ from repro.models import model as ref_model
 from repro_torch.configs import ARCHS
 from repro_torch.convert import (lm_cache_from_reference,
                                  lm_params_from_reference)
-from repro_torch.models import (check_supported, decode_step, forward,
-                                init_cache, init_model, prefill)
+from repro_torch.models import (decode_step, forward, init_cache,
+                                init_model, prefill)
 
 ARCH = "xlstm-125m"
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -72,28 +72,20 @@ def test_configs_are_the_reference_values(arch):
     assert ARCHS[arch].param_count() == REF_ARCHS[arch].param_count()
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "qwen3-moe-235b-a22b",
-                                  "kimi-k2-1t-a32b"])
-def test_unported_architectures_raise(arch):
-    """Mamba (item 5) and MoE (item 6) are what the port lacks."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item"):
-        check_supported(ARCHS[arch].reduced())
-    with pytest.raises(NotImplementedError):
-        init_model(ARCHS[arch].reduced(), device="cpu")
-
-
 def _leaf(tree, name):
     for part in name.split("."):
         tree = tree[part]
     return tree
 
 
-@pytest.mark.parametrize("arch", [ARCH, "whisper-small", "qwen2-vl-2b"])
+@pytest.mark.parametrize("arch", [ARCH, "whisper-small", "qwen2-vl-2b",
+                                  "jamba-v0.1-52b", "kimi-k2-1t-a32b"])
 def test_parameters_carried_bitwise(arch):
     """Layer i holds period i // period of slot b{i % period}, encoder
     layer i entry i of enc_blocks/b0; top-level leaves (frontend,
-    norm_enc_*) carried; every leaf bitwise; and a tree with a missing
-    leaf raises."""
+    norm_enc_*) carried; every leaf bitwise (the Mamba mixer's, the MoE
+    router's and the (E, d, ff) expert stacks included); and a tree with
+    a missing leaf raises."""
     cfg = ARCHS[arch].reduced()
     params, _ = ref_model.init_model(REF_ARCHS[arch].reduced(),
                                      jax.random.PRNGKey(0))
@@ -123,6 +115,13 @@ def test_parameters_carried_bitwise(arch):
         b0["mixer"] = {k: v for k, v in b0["mixer"].items() if k != "wv"}
         broken = dict(np_params, enc_blocks={"b0": b0})
         missing = "wv"
+    elif cfg.moe:
+        # jamba: slot b0 is a Mamba mixer; kimi-k2: slot b0 is MoE.
+        sub, missing = (("mixer", "A_log") if cfg.block_pattern[0] == "mamba"
+                        else ("moe", "router"))
+        b0 = dict(np_params["blocks"]["b0"])
+        b0[sub] = {k: v for k, v in b0[sub].items() if k != missing}
+        broken = dict(np_params, blocks=dict(np_params["blocks"], b0=b0))
     else:
         broken = {k: v for k, v in np_params.items() if k != "frontend"}
         missing = "frontend"
