@@ -44,7 +44,14 @@ and one MoE layer at its widths in float32 for three checks that each
 see a planted fault (steps against forward, chunked against one chunk,
 scatter against einsum where assignments drop); and qwen3-moe-235b-a22b
 (2 layers) and kimi-k2-1t-a32b (1 layer) at full width (prefill and
-decode, finite logits).  Any failed check exits non-zero.  The last line of standard output is
+decode, finite logits).  Last, the sharded CT path at full RabbitCT
+width on phase 3's data: ``reconstruct_shards`` on the two z-halves
+bitwise equal to ``reconstruct`` (float32 and int8 wires),
+``sharded_reconstruct`` on a 1x1 NCCL mesh bitwise equal to the one-card
+path, one scan served through ``CTFrontDoor(mesh=...)``, and four
+processes on the one card as a 2x2 gloo mesh, each slab within 1e-5 x
+max|v| of the one-rank volume.  Any failed check exits non-zero.  The
+last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the JSON record of
 every kernel of the path.  Needs one CUDA card; imports nothing of JAX
 or of the JAX package.
@@ -200,6 +207,14 @@ MAMBA_TOL = 2e-4
 MOE_TOKENS, MOE_CF, MOE_TOL = 512, 0.5, 1e-4
 # 13e: (architecture, depth cut); 94 and 61 layers do not fit one card.
 MOE_FAMILIES = (("qwen3-moe-235b-a22b", 2), ("kimi-k2-1t-a32b", 1))
+
+# The sharded path (phase 14): 14d's mesh, four processes on the one
+# card over gloo (NCCL refuses two ranks on one device), each rank's
+# slab held to the one-rank volume within SHARD_TOL * max|v| (the
+# reference's sharded bound, tests/test_distributed.py).
+SHARD_MESH = (2, 2)                 # (data, model)
+SHARD_TOL = 1e-5
+SHARD_TIMEOUT_S = 240
 MOE_PROMPT = 64
 
 
@@ -2306,10 +2321,368 @@ def run_lm(cfg, glm_cfg, jamba_cfg, dev, card: str) -> list:
     return k
 
 
+# ----------------------------------------------------------------------
+# The sharded path (phase 14)
+# ----------------------------------------------------------------------
+
+def ct_data(geom, dev):
+    """Phase 3's data: the phantom's line integrals on the card, the
+    projection matrices, and the views filtered CHUNK at a time."""
+    from repro_torch.core.filtering import filter_projections
+    from repro_torch.core.geometry import projection_matrices
+    from repro_torch.core.phantom import forward_project
+
+    projs = forward_project(geom, device=dev)
+    mats = projection_matrices(geom)
+    filt = torch.cat([filter_projections(
+        projs[i:i + CHUNK], geom, angle_indices=np.arange(i, i + CHUNK),
+        device=dev) for i in range(0, geom.n_proj, CHUNK)])
+    return projs, mats, filt
+
+
+def zero_launches() -> None:
+    from repro_torch.kernels import LAUNCHES
+
+    torch.cuda.synchronize()
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def check_halves(geom, dev, mats, filt) -> dict:
+    """14a: ``reconstruct_shards`` on the two z-halves at their ``z0`` on
+    the float32 and int8 wires; their concatenation must equal
+    ``reconstruct`` on the same plan bitwise."""
+    from repro_torch.core.backproject import reconstruct
+    from repro_torch.core.pipeline import reconstruct_shards
+    from repro_torch.dispatch import ExecutionPlan
+    from repro_torch.kernels import LAUNCHES
+
+    half, L = geom.L // 2, geom.L
+    batches = -(-geom.n_proj // PBATCH)
+    out = {}
+    for wire, plan in (
+            ("float32", ExecutionPlan.explicit("scalar", pbatch=PBATCH)),
+            ("int8", ExecutionPlan.explicit(
+                "strip2", {"strip_dtype": "int8"}, PBATCH))):
+        whole = reconstruct(filt, mats, geom, plan=plan, device=dev)
+        zero_launches()
+        t0 = time.perf_counter()
+        slabs = [reconstruct_shards(
+            filt, mats, geom, plan,
+            torch.zeros((half, L, L), dtype=torch.float32, device=dev),
+            z0=z0) for z0 in (0, half)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        same = torch.equal(torch.cat(slabs), whole)
+        print(f"  {wire}: slabs z0 = 0, {half} against reconstruct: "
+              f"{'bitwise' if same else 'DIFFERENT'}; {wall:.3f} s, "
+              f"launches {launches}")
+        if not same:
+            fail(f"14a: the {wire} slabs differ from reconstruct by "
+                 f"{float((torch.cat(slabs) - whole).abs().max()):.3e}")
+        # The int8 wire encodes a call's whole stack in one launch.
+        want = {"float32": {"backproject": 2 * batches},
+                "int8": {"backproject_int8": 2 * batches,
+                         "quantize_rows": 2}}[wire]
+        if launches != want:
+            fail(f"14a: {wire} launches {launches}, want {want}")
+        out[wire] = {"launches": launches, "wall_s": wall}
+        del whole, slabs
+    return out
+
+
+def check_identity_mesh(geom, dev, projs, mats, filt, scan_s) -> tuple:
+    """14b and 14c on a 1x1 mesh (a single-process NCCL group): the
+    sharded reconstruction with prefiltered and raw views, bitwise equal
+    to the one-card path, then one scan served through
+    ``CTFrontDoor(mesh=...)``.  Returns the record and 14b's volume."""
+    import torch.distributed as dist
+
+    from repro_torch.api import CTFrontDoor, ProjectionChunk
+    from repro_torch.core.backproject import reconstruct
+    from repro_torch.core.filtering import filter_projections
+    from repro_torch.core.pipeline import sharded_reconstruct
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_local_mesh
+
+    rec = {}
+    batches = -(-geom.n_proj // PBATCH)
+    mesh = make_local_mesh(1, 1, device=dev)
+    try:
+        print(f"phase 14b: sharded_reconstruct on a 1x1 mesh "
+              f"({dist.get_backend()}), strip2, pbatch={PBATCH}")
+        # The first call makes the NCCL communicator (the plan's
+        # broadcast); the second is the scan's own cost.
+        for label, stack, prefiltered in (("first", filt, True),
+                                          ("prefiltered", filt, True),
+                                          ("raw", projs, False)):
+            zero_launches()
+            t0 = time.perf_counter()
+            vol = sharded_reconstruct(stack, mats, geom, mesh,
+                                      pbatch=PBATCH, prefiltered=prefiltered,
+                                      device=dev).full_tensor()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = LAUNCHES["backproject"]
+            if prefiltered:
+                want = reconstruct(filt, mats, geom, strategy="strip2",
+                                   pbatch=PBATCH, device=dev)
+            else:
+                # The whole stack filtered in one call, as the one rank
+                # filters it.
+                want = reconstruct(filter_projections(projs, geom,
+                                                      device=dev),
+                                   mats, geom, strategy="strip2",
+                                   pbatch=PBATCH, device=dev)
+            err = float((vol - want).abs().max())
+            what = ("reconstruct" if prefiltered
+                    else "filter_projections + reconstruct")
+            print(f"  {label}: {wall:.3f} s, row 1 launches {n}; against "
+                  f"{what}: max|d| {err:.3e}")
+            if not torch.equal(vol, want):
+                fail(f"14b: the {label} 1x1 volume differs by {err:.3e}")
+            if n != batches:
+                fail(f"14b: {n} row 1 launches, want {batches}")
+            rec[label] = {"wall_s": wall, "launches": n}
+            del want
+            if not prefiltered:
+                v14b = vol
+            del vol
+
+        print(f"phase 14c: CTFrontDoor(mesh=...) serves one scan in "
+              f"shuffled chunks of {CHUNK}")
+        fd = CTFrontDoor(geom, mesh=mesh, n_slots=1, pbatch=PBATCH,
+                         device=dev)
+        zero_launches()
+        t0 = time.perf_counter()
+        vol = asyncio.run(_client(fd, projs, mats, "clinic-a", 3))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = LAUNCHES["backproject"]
+        same = torch.equal(vol, v14b)
+        print(f"  served in {wall:.3f} s (phase 3: {scan_s:.3f} s a scan "
+              f"with 2 in flight); row 1 launches {n}; against 14b: "
+              f"{'bitwise' if same else 'DIFFERENT'}")
+        if not same or n != batches:
+            fail(f"14c: served volume equal to 14b: {same}; launches {n}")
+        del vol
+
+        async def again():
+            ticket = await fd.open_scan()
+            one = ProjectionChunk(projs[:1], mats[:1], [0])
+            await fd.submit(ticket, one)
+            try:
+                await fd.submit(ticket, one)
+            except ValueError as e:
+                return str(e)
+            finally:
+                await fd.cancel(ticket)
+            return None
+
+        msg = asyncio.run(again())
+        print(f"  a second submission of angle 0 raises: {msg}")
+        if msg is None or "exactly once" not in msg:
+            fail("14c: a second submission of one angle did not raise")
+        rec["served"] = {"wall_s": wall, "launches": n,
+                         "phase3_scan_s": scan_s, "stats": dict(fd.stats)}
+    finally:
+        dist.destroy_process_group()
+    return rec, v14b
+
+
+def shard_rank(rank: int, tmp: str) -> int:
+    """One rank of 14d (``chip_smoke.py --shard-rank RANK DIR``): joins
+    the gloo world through a FileStore in DIR, makes phase 3's raw
+    views, runs ``sharded_reconstruct(prefiltered=False)`` on the 2x2
+    mesh, and writes its slab's error against 14b's planes to DIR."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(_SRC))
+    from repro_torch.core.geometry import Geometry, projection_matrices
+    from repro_torch.core.phantom import forward_project
+    from repro_torch.core.pipeline import sharded_reconstruct
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_local_mesh
+
+    d = pathlib.Path(tmp)
+    meta = json.loads((d / "meta.json").read_text())
+    world = SHARD_MESH[0] * SHARD_MESH[1]
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(d / "store"), world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        dev = torch.device("cuda", 0)
+        geom = Geometry()
+        projs = forward_project(geom, device=dev)
+        same_data = torch.equal(projs.double().sum(dim=(1, 2)).cpu(),
+                                torch.from_numpy(np.load(d / "sums.npy")))
+        # Four ranks share the card: each keeps the full stack on the
+        # host and moves only its own block to the card.
+        projs = projs.cpu()
+        torch.cuda.empty_cache()
+        mats = projection_matrices(geom)
+        mesh = make_local_mesh(*SHARD_MESH, device=dev)
+        reduce_s = []
+        all_reduce = dist.all_reduce
+
+        def timed(tensor, *args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            work = all_reduce(tensor, *args, **kwargs)
+            torch.cuda.synchronize()
+            reduce_s.append(time.perf_counter() - t)
+            return work
+
+        # Twice: the first call pays each process's first uses (the
+        # kernel library, cuFFT's plans, the host buffers).
+        walls, errs = [], []
+        dist.all_reduce = timed
+        try:
+            for _ in range(2):
+                dist.barrier()
+                zero_launches()
+                t0 = time.perf_counter()
+                vol = sharded_reconstruct(projs, mats, geom, mesh,
+                                          prefiltered=False, pbatch=PBATCH,
+                                          device=dev)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                slab = vol.to_local()
+                z0 = mesh.get_local_rank("data") * slab.shape[0]
+                want = torch.from_numpy(np.array(np.load(
+                    d / "vol.npy", mmap_mode="r")[z0:z0 + slab.shape[0]]))
+                errs.append(float((slab - want.to(dev)).abs().max()))
+                del want
+        finally:
+            dist.all_reduce = all_reduce
+        launches = LAUNCHES["backproject"]
+        err = max(errs)
+        top = float(slab.abs().max())
+        # The slab's all-reduce again, after a barrier: the transfer
+        # without the wait for the partner's fold.
+        group = mesh.get_group("model")
+        dist.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dist.all_reduce(slab.clone(), group=group)
+        torch.cuda.synchronize()
+        alone = time.perf_counter() - t
+        rec = {"rank": rank, "coordinate": mesh.get_coordinate(), "z0": z0,
+               "slab": list(slab.shape), "max_abs_err": err,
+               "bound": SHARD_TOL * meta["max_abs"], "max_abs": top,
+               "same_data": same_data, "launches": launches,
+               "wall_s": walls, "all_reduce_s": reduce_s,
+               "all_reduce_alone_s": alone,
+               "all_reduce_bytes": slab.numel() * slab.element_size()}
+    finally:
+        dist.destroy_process_group()
+    (d / f"rank{rank}.json").write_text(json.dumps(rec))
+    ok = same_data and top > 0 and err <= SHARD_TOL * meta["max_abs"]
+    return 0 if ok else 1
+
+
+def check_four_ranks(sums: np.ndarray, v14b: np.ndarray) -> dict:
+    """14d: four processes on the one card form a 2x2 mesh over gloo
+    and run ``sharded_reconstruct(prefiltered=False)``; each rank's slab
+    must lie within SHARD_TOL * max|v| of 14b's planes (``v14b``) and be
+    nonzero, and each rank's raw views must have the per-view sums
+    ``sums`` of phase 3's.  A rank that fails, or outlasts
+    SHARD_TIMEOUT_S, fails the phase."""
+    world = SHARD_MESH[0] * SHARD_MESH[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        np.save(d / "vol.npy", v14b)
+        np.save(d / "sums.npy", sums)
+        (d / "meta.json").write_text(json.dumps(
+            {"max_abs": float(np.abs(v14b).max())}))
+        t0 = time.perf_counter()
+        procs = []
+        for r in range(world):
+            with open(d / f"rank{r}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(pathlib.Path(__file__).resolve()),
+                     "--shard-rank", str(r), tmp], stdout=log,
+                    stderr=subprocess.STDOUT))
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, t0 + SHARD_TIMEOUT_S
+                                   - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r, p in enumerate(procs):
+            out = d / f"rank{r}.json"
+            if p.returncode != 0 or not out.is_file():
+                tail = (d / f"rank{r}.log").read_text()[-3000:]
+                fail(f"14d: rank {r} exited {p.returncode}:\n{tail}")
+            ranks.append(json.loads(out.read_text()))
+    for r in ranks:
+        print(f"  rank {r['rank']} {r['coordinate']}: z0 {r['z0']}, "
+              f"max|d| {r['max_abs_err']:.3e} (bound {r['bound']:.3e}), "
+              f"row 1 launches {r['launches']} a run; first and second "
+              f"run {r['wall_s'][0]:.3f}, {r['wall_s'][1]:.3f} s; slab "
+              f"all-reduce {r['all_reduce_bytes'] / 2**20:.0f} MiB: "
+              f"{', '.join(f'{t:.3f}' for t in r['all_reduce_s'])} s in the "
+              f"runs, {r['all_reduce_alone_s']:.3f} s after a barrier")
+    print(f"  four ranks in {wall:.2f} s wall (start-up, data, the run)")
+    return {"ranks": ranks, "wall_s": wall}
+
+
+def run_sharded(geom, dev, card: str, scan_s: float) -> dict:
+    """Phase 14 at ``geom``'s full width on phase 3's data; prints the
+    details and returns row 1's launches per sub-phase."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    projs, mats, filt = ct_data(geom, dev)
+    print(f"phase 14a: reconstruct_shards on the two z-halves of L="
+          f"{geom.L}, {geom.n_proj} views")
+    halves = check_halves(geom, dev, mats, filt)
+    ident, v14b = check_identity_mesh(geom, dev, projs, mats, filt, scan_s)
+    sums = projs.double().sum(dim=(1, 2)).cpu().numpy()
+    v14b = v14b.cpu().numpy()
+    # The card is the four ranks' now.
+    del projs, mats, filt
+    torch.backends.cuda.cufft_plan_cache.clear()
+    torch.cuda.empty_cache()
+    print(f"phase 14d: four ranks on the one card, a "
+          f"{SHARD_MESH[0]}x{SHARD_MESH[1]} mesh over gloo")
+    four = check_four_ranks(sums, v14b)
+    del v14b
+    phase_s = time.perf_counter() - t0
+    print(f"  phase 14 took {phase_s:.2f} s")
+    launches = {
+        "14a": halves["float32"]["launches"]["backproject"],
+        "14b": sum(r["launches"] for k, r in ident.items()
+                   if k != "served"),
+        "14c": ident["served"]["launches"],
+        "14d": sum(r["launches"] for r in four["ranks"])}
+    print(json.dumps({"sharded_detail": {
+        "card": card, "phase_s": phase_s, "halves": halves,
+        "identity_mesh": ident, "four_ranks": four,
+        "row1_launches": launches}}))
+    return {"backproject_batch": launches,
+            "backproject_batch_int8": {
+                "14a": halves["int8"]["launches"]["backproject_int8"]},
+            "quantize_rows": {
+                "14a": halves["int8"]["launches"]["quantize_rows"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA card")
+    if sys.argv[1:2] == ["--shard-rank"]:
+        return shard_rank(int(sys.argv[2]), sys.argv[3])
     sys.path.insert(0, str(_SRC))
     try:
         from repro_torch.core.geometry import Geometry
@@ -2328,11 +2701,16 @@ def main() -> int:
           f"gather and slstm kernels in {build_s:.2f} s")
     dev = torch.device("cuda", 0)
     record = run(Geometry(), dev, card, build_s)
+    scan_s = record.pop("served_scan_s")
     from repro_torch.configs import ARCHS
     record["kernels"] += run_lm(
         ARCHS[LM_ARCH], ARCHS[GLM_ARCH],
         dataclasses.replace(ARCHS[JAMBA_ARCH], n_layers=JAMBA_DEPTH), dev,
         card)
+    sharded = run_sharded(Geometry(), dev, card, scan_s)
+    for entry in record["kernels"]:
+        if entry["name"] in sharded:
+            entry["sharded_launches"] = sharded[entry["name"]]
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
@@ -2343,11 +2721,7 @@ def main() -> int:
 
 def run(geom, dev, card: str, build_s: float) -> dict:
     """Phases 2-8 on ``geom``; prints the details and returns the
-    ``kernels`` record."""
-    from repro_torch.core.filtering import filter_projections
-    from repro_torch.core.geometry import projection_matrices
-    from repro_torch.core.phantom import forward_project
-
+    ``kernels`` record and phase 3's wall seconds per served scan."""
     print(f"phase 2: kernel vs plain at L={geom.L}, "
           f"{geom.n_u}x{geom.n_v} detector")
     problem, (err, timing, plain_ms) = check_kernel(
@@ -2360,11 +2734,7 @@ def run(geom, dev, card: str, build_s: float) -> dict:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    projs = forward_project(geom, device=dev)
-    mats = projection_matrices(geom)
-    filt = torch.cat([filter_projections(
-        projs[i:i + CHUNK], geom, angle_indices=np.arange(i, i + CHUNK),
-        device=dev) for i in range(0, geom.n_proj, CHUNK)])
+    projs, mats, filt = ct_data(geom, dev)
     torch.cuda.synchronize()
     print(f"  forward projection and filter of {geom.n_proj} views: "
           f"{time.perf_counter() - t0:.2f} s")
@@ -2516,7 +2886,7 @@ def run(geom, dev, card: str, build_s: float) -> dict:
         "auto_served_launch_ms_median": statistics.median(
             auto["served_launch_ms"]),
         "tuned": tuned}}))
-    return {"kernels": k}
+    return {"kernels": k, "served_scan_s": wall / 2}
 
 
 if __name__ == "__main__":

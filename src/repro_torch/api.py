@@ -1,11 +1,10 @@
 """The stable public surface of :mod:`repro_torch`.
 
-The counterpart of ``repro.api``, restricted to the names the port
-implements.  Option-bag parameters are keyword-only, and every entry
-point takes ``device=`` (default ``"cuda"``; the CPU only when asked
-for).  ``strategy="auto"`` resolves through the process
-:class:`Dispatcher` (a tuned decision from the port's cache, or an
-in-situ selection on first use)::
+The counterpart of ``repro.api``, name for name.  Option-bag
+parameters are keyword-only, and every entry point takes ``device=``
+(default ``"cuda"``; the CPU only when asked for).  ``strategy="auto"``
+resolves through the process :class:`Dispatcher` (a tuned decision from
+the port's cache, or an in-situ selection on first use)::
 
     from repro_torch.api import CTFrontDoor, Geometry, ProjectionChunk
 
@@ -20,6 +19,7 @@ from __future__ import annotations
 from .core.backproject import reconstruct
 from .core.filtering import filter_projections
 from .core.geometry import Geometry
+from .core.pipeline import reconstruct_shards, sharded_reconstruct
 from .dispatch import (Dispatcher, ExecutionPlan, get_dispatcher,
                        set_dispatcher)
 from .serving.ct_frontdoor import (POLICIES, AdmissionPolicy, Backpressure,
@@ -31,10 +31,12 @@ from .streaming import ProjectionChunk, ReconstructionEngine, ScanState
 from .tune import TunedConfig, autotune
 
 __all__ = [
-    # one-shot reconstruction
+    # one-shot + sharded reconstruction
     "Geometry",
     "filter_projections",
     "reconstruct",
+    "sharded_reconstruct",
+    "reconstruct_shards",
     # dispatch
     "Dispatcher",
     "ExecutionPlan",

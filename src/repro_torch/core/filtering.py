@@ -152,11 +152,16 @@ def apply_filter(projections: torch.Tensor, plan: FilterPlan,
     ``pw_rows`` the matching ``(k, n_u)`` Parker rows (already *selected
     by angle index*), or ``None`` to skip short-scan weighting.
     """
+    # In place where the tensor is this function's own: a 496-view stack
+    # at RabbitCT width holds several GB per intermediate.
     w = projections.to(torch.float32) * plan.cosw
     if pw_rows is not None:
-        w = w * pw_rows[..., None, :]
+        w *= pw_rows[..., None, :]
     wf = torch.fft.rfft(w, n=plan.pad, dim=-1)
-    f = torch.fft.irfft(wf * plan.hf, n=plan.pad, dim=-1)[..., :plan.n_u]
+    del w
+    wf *= plan.hf
+    f = torch.fft.irfft(wf, n=plan.pad, dim=-1)[..., :plan.n_u]
+    del wf
     return f * plan.scale
 
 

@@ -1,0 +1,27 @@
+"""Distribution layer: logical-axis sharding rules + custom collectives.
+
+The port's counterpart of ``repro.dist``, on ``torch.distributed``.  One
+sharding vocabulary for both workloads: code annotates tensors with
+*logical* axis names (``batch``, ``fsdp``, ``tp``, ``ep``, ``sp``,
+``vol``, ``proj``, ...); :mod:`repro_torch.dist.sharding` maps those to
+the axes of a ``DeviceMesh``, pruning whatever the mesh does not have,
+and to DTensor placements.  :mod:`repro_torch.dist.collectives` holds the
+hand-scheduled all-reduce variants (bucketed exact, int8 error-feedback).
+Every rank runs the same program (SPMD).
+"""
+
+from .collectives import bucketed_psum, compress_psum  # noqa: F401
+from .sharding import (ShardingRules, logical_to_spec,  # noqa: F401
+                       shard_constraint, sharding_context,
+                       spec_to_placements, valid_spec)
+
+__all__ = [
+    "ShardingRules",
+    "logical_to_spec",
+    "valid_spec",
+    "spec_to_placements",
+    "sharding_context",
+    "shard_constraint",
+    "bucketed_psum",
+    "compress_psum",
+]

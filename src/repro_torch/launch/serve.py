@@ -1,9 +1,9 @@
 """Serving launcher: the continuous-batching engine over synthetic
-traffic, counterpart of ``repro/launch/serve.py`` (the same flags and the
-same reduced config, plus ``--device``, the card by default):
+traffic, counterpart of ``repro/launch/serve.py``: the same flags with
+the same defaults (``--arch chatglm3-6b``) and the same reduced config,
+plus ``--device`` (the card by default):
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
-        --requests 8 --slots 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 --slots 4
 
 Every architecture serves at its ``reduced()`` widths, jamba-v0.1-52b
 (Mamba and MoE), qwen3-moe-235b-a22b and kimi-k2-1t-a32b (MoE) among
@@ -26,7 +26,7 @@ from ..serving import Request, ServingEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="xlstm-125m", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="chatglm3-6b", choices=sorted(ARCHS))
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)

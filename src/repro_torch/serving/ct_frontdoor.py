@@ -22,9 +22,11 @@ a slot:
 * **Cancellation.** :meth:`CTFrontDoor.cancel` drops a pending ticket or
   aborts an in-flight one (``ReconstructionEngine.abort_scan`` zeroes
   the slot in place and refills it), so abort-then-reuse is bit-clean.
-
-The sharded backend (``mesh=``) waits for the port of ``dist/``; asking
-for it raises.
+* **Sharded mode.** ``mesh=`` serves each scan across a ``DeviceMesh``
+  through :func:`repro_torch.core.pipeline.sharded_reconstruct`.  The
+  port runs SPMD: every rank of the mesh builds its own front door and
+  drives it with the same calls, in the same order, with the same
+  chunks; each rank's :meth:`CTFrontDoor.result` is the whole volume.
 
 Concurrency model: single event loop, cooperative.  Device work is
 launched inline (CUDA launches are asynchronous, so they overlap host
@@ -37,6 +39,9 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import time
+
+import numpy as np
+import torch
 
 from ..core.geometry import Geometry
 from ..streaming import ProjectionChunk, ReconstructionEngine
@@ -271,6 +276,93 @@ class _EngineBackend:
         self.engine.abort_scan(sid)
 
 
+class _ShardedBackend:
+    """Mesh path: one scan's volume spans the ``data`` axis.
+
+    Chunks stage on the host by *global angle index*; when the full scan
+    is in, :func:`repro_torch.core.pipeline.sharded_reconstruct` runs
+    with ``prefiltered=False``: each rank FDK-filters its projection
+    block and back-projects its z-slab at its ``z0``, so filtering
+    scales with the ``proj`` axes and the volume with ``data``.  The
+    in-shard filter needs the whole scan (Parker rows by global angle
+    index), so sharded scans must declare ``n_proj == geom.n_proj`` and
+    each angle may arrive exactly once.
+
+    ``n_slots`` bounds how many scans may stage concurrently: the same
+    admission currency as the engine backend, with host staging memory
+    (``n_proj * n_v * n_u * 4`` bytes per scan) as the resource.
+    """
+
+    def __init__(self, geom: Geometry, mesh, *, n_slots: int = 2,
+                 volume_axis: str = "data",
+                 proj_axes: tuple[str, ...] = ("model",),
+                 strategy: str = "strip2", pbatch: int | None = None,
+                 short_scan: bool | None = None, device="cuda", **opts):
+        self.geom = geom
+        self.mesh = mesh
+        self.n_slots = int(n_slots)
+        self._recon_kw = dict(strategy=strategy, volume_axis=volume_axis,
+                              proj_axes=tuple(proj_axes), pbatch=pbatch,
+                              prefiltered=False, short_scan=short_scan,
+                              device=device, **opts)
+        self._staged: dict[int, dict] = {}
+        self._next_sid = 0
+
+    @property
+    def free_slots(self) -> int:
+        return max(0, self.n_slots - len(self._staged))
+
+    def validate_declared(self, n_proj: int) -> None:
+        if n_proj != self.geom.n_proj:
+            raise ValueError(
+                f"sharded mode filters in-shard by global angle index, so "
+                f"scans must be full: declared n_proj={n_proj}, geometry "
+                f"has {self.geom.n_proj}")
+
+    def begin(self, n_proj: int) -> int:
+        self.validate_declared(n_proj)
+        sid = self._next_sid
+        self._next_sid += 1
+        g = self.geom
+        self._staged[sid] = {
+            "projs": torch.zeros((g.n_proj, g.n_v, g.n_u),
+                                 dtype=torch.float32),
+            "mats": np.zeros((g.n_proj, 3, 4), np.float32),
+            "seen": np.zeros((g.n_proj,), bool),
+        }
+        return sid
+
+    def submit(self, sid: int, chunk: ProjectionChunk) -> None:
+        st = self._staged[sid]
+        projs, mats, idx = chunk.arrays(device="cpu")
+        if idx.min() < 0 or idx.max() >= self.geom.n_proj:
+            raise ValueError(
+                f"angle indices must lie in [0, {self.geom.n_proj})")
+        if st["seen"][idx].any() or len(set(idx.tolist())) != len(idx):
+            raise ValueError(
+                "sharded mode takes each angle index exactly once; "
+                f"duplicate in {idx.tolist()}")
+        st["projs"][torch.as_tensor(idx, dtype=torch.long)] = projs
+        st["mats"][idx] = mats
+        st["seen"][idx] = True
+
+    def pump(self) -> None:
+        pass                        # nothing incremental to advance
+
+    def poll(self, sid: int):
+        from ..core.pipeline import sharded_reconstruct
+
+        st = self._staged.get(sid)
+        if st is None or not st["seen"].all():
+            return None
+        del self._staged[sid]
+        return sharded_reconstruct(st["projs"], st["mats"], self.geom,
+                                   self.mesh, **self._recon_kw).full_tensor()
+
+    def abort(self, sid: int) -> None:
+        self._staged.pop(sid, None)
+
+
 # ----------------------------------------------------------------------
 # The front door
 # ----------------------------------------------------------------------
@@ -284,12 +376,16 @@ class CTFrontDoor:
 
     ``open_scan`` raises :class:`Backpressure` (with ``retry_after``)
     when no slot is free and ``max_pending`` tickets already wait —
-    bounded queues all the way down.  A :class:`ReconstructionEngine` on
-    ``device`` is built from ``engine_opts`` (``strategy``, including
-    ``"auto"``, which the engine resolves through the dispatcher at
-    construction, ``strip_dtype`` and the window options, ``pbatch``,
-    ``validate``, ``plan``, ...), or pass a prebuilt one as
-    ``engine=``; ``mesh=`` raises until the sharded backend is ported.
+    bounded queues all the way down.  ``mesh=...`` (a ``DeviceMesh``)
+    selects the sharded backend, which ``engine_opts`` configure
+    (``strategy``, ``pbatch``, ``volume_axis``, ``proj_axes``,
+    ``short_scan``, the strategy's options); every rank of the mesh
+    drives its own front door with the same calls (SPMD).  Otherwise a
+    :class:`ReconstructionEngine` on ``device`` is built from
+    ``engine_opts`` (``strategy``, including ``"auto"``, which the engine
+    resolves through the dispatcher at construction, ``strip_dtype`` and
+    the window options, ``pbatch``, ``validate``, ``plan``, ...), or pass
+    a prebuilt one as ``engine=``.
     """
 
     def __init__(self, geom: Geometry, *, n_slots: int = 4,
@@ -298,18 +394,20 @@ class CTFrontDoor:
                  clock=time.monotonic, device="cuda", **engine_opts):
         if max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded backend (mesh=) is not ported yet; serve "
-                "through the single-device engine")
         self.geom = geom
         self.policy = _resolve_policy(policy)
         self.max_pending = int(max_pending)
         self._clock = clock
-        if engine is None:
-            engine = ReconstructionEngine(geom, n_slots=n_slots,
-                                          device=device, **engine_opts)
-        self._backend = _EngineBackend(engine)
+        if mesh is not None:
+            if engine is not None:
+                raise ValueError("pass engine= or mesh=, not both")
+            self._backend = _ShardedBackend(geom, mesh, n_slots=n_slots,
+                                            device=device, **engine_opts)
+        else:
+            if engine is None:
+                engine = ReconstructionEngine(geom, n_slots=n_slots,
+                                              device=device, **engine_opts)
+            self._backend = _EngineBackend(engine)
         self._pending: list[ScanTicket] = []      # arrival order
         self._active: dict[int, ScanTicket] = {}
         self._next_tid = 0

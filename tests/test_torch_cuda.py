@@ -120,6 +120,43 @@ def test_row1_equals_plain_at_odd_shapes(dev, wire, P):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
 
+def test_sharded_identity_mesh_on_the_card_equals_the_cpu(dev):
+    """A 1x1 mesh on the card (a single-process NCCL group): with
+    prefiltered images bitwise the card's one-shot fold, and with raw
+    ones (filtered in the shard) within 1e-5 * max(1, max|v|) of the CPU
+    (cuFFT against the host FFT, then row 1 against the strip2 sampler);
+    row 1 launched once per batch of 4 each time."""
+    import torch.distributed as dist
+
+    from repro_torch.core.backproject import reconstruct
+    from repro_torch.core.pipeline import sharded_reconstruct
+    from repro_torch.launch.mesh import make_local_mesh
+
+    raw, filt = _filtered(dev)
+    mats = projection_matrices(G)
+    mesh = make_local_mesh(1, 1, device=dev)
+    try:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+        pre = sharded_reconstruct(filt, mats, G, mesh, device=dev)
+        out = sharded_reconstruct(raw, mats, G, mesh, prefiltered=False,
+                                  device=dev).full_tensor()
+        torch.cuda.synchronize()
+        launches = LAUNCHES["backproject"]
+        assert torch.equal(pre.to_local(), reconstruct(filt, mats, G,
+                                                       strategy="strip2",
+                                                       device=dev))
+    finally:
+        dist.destroy_process_group()
+    assert launches == 2 * -(-G.n_proj // 4)
+    raw_cpu = raw.cpu()
+    want = reconstruct(filter_projections(raw_cpu, G, device="cpu"), mats, G,
+                       strategy="strip2", device="cpu")
+    tol = 1e-5 * max(1.0, float(want.abs().max()))
+    assert float((out.cpu() - want).abs().max()) <= tol
+    assert float(want.abs().max()) > 0
+
+
 def test_engine_int8_wire_launches_once_per_fold(dev):
     """strip2 on the int8 wire: one encode and one int8 launch per fold,
     and the same volume as the CPU engine to 1e-4·max|v| (the CPU runs

@@ -200,3 +200,29 @@ def test_serve_launcher_on_the_cpu(capsys):
                        "--max-tokens", "4"])
     assert [len(r.out_tokens) for r in reqs] == [4, 4, 4]
     assert "3 reqs x 2 slots" in capsys.readouterr().out
+
+
+def test_serve_launchers_have_the_same_defaults(monkeypatch):
+    """The reference's ``main()`` reads ``sys.argv``; both parsers are
+    caught at ``parse_args`` and their defaults compared."""
+    import argparse
+
+    from repro.launch import serve as ref_serve
+
+    class Parsed(Exception):
+        pass
+
+    def grab(self, args=None, namespace=None):
+        raise Parsed({a.dest: a.default for a in self._actions
+                      if a.dest != "help"})
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
+    monkeypatch.setattr("sys.argv", ["serve"])
+    found = []
+    for main in (ref_serve.main, serve.main):
+        with pytest.raises(Parsed) as exc:
+            main()
+        found.append(exc.value.args[0])
+    ref, port = found
+    assert port.pop("device") == "cuda"
+    assert port == ref and port["arch"] == "chatglm3-6b"

@@ -40,7 +40,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.models.attention, "
             "repro_torch.models.blocks, repro_torch.models.model, "
             "repro_torch.serving, repro_torch.serving.engine, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.launch.mesh, "
+            "repro_torch.dist, repro_torch.core.pipeline\n"
             "print('\\n'.join(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
@@ -74,7 +75,9 @@ def test_default_device_is_the_card():
     from repro_torch.streaming import ReconstructionEngine
     from repro_torch.configs import ARCHS
     from repro_torch.convert import lm_params_from_reference
+    from repro_torch.core.pipeline import sharded_reconstruct
     from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import init_cache, init_model
     from repro_torch.tune import autotune, sweep_strategies
 
@@ -92,7 +95,9 @@ def test_default_device_is_the_card():
                  lambda: init_model(cfg),
                  lambda: init_cache(cfg, 2, 16),
                  lambda: lm_params_from_reference({}, cfg),
-                 lambda: serve.main(["--requests", "1"])):
+                 lambda: serve.main(["--requests", "1"]),
+                 lambda: make_local_mesh(1, 1),
+                 lambda: sharded_reconstruct(x, mats, G, None)):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
 
