@@ -50,7 +50,16 @@ bitwise equal to ``reconstruct`` (float32 and int8 wires),
 ``sharded_reconstruct`` on a 1x1 NCCL mesh bitwise equal to the one-card
 path, one scan served through ``CTFrontDoor(mesh=...)``, and four
 processes on the one card as a 2x2 gloo mesh, each slab within 1e-5 x
-max|v| of the one-rank volume.  Any failed check exits non-zero.  The
+max|v| of the one-rank volume.  Last, training (phase 15): the backward
+kernels of the row gather (``d table``, row 9b) and of the sLSTM
+recurrence (``d zifo``, ``d r``, row 10b) against autograd through their
+plain versions, each bound made to see a planted fault; xlstm-125m
+trained at full width through ``python -m repro_torch.launch.train``
+(the loss falls, checkpoints kept), through the API with the one-hot
+gather (rows 9, 9b, 10, 10b launched every step), a preemption drill
+that resumes bitwise, and one float32 step with the kernels against the
+same step on the plain versions; and chatglm3-6b trained at full width
+through the launcher's defaults.  Any failed check exits non-zero.  The
 last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the JSON record of
 every kernel of the path.  Needs one CUDA card; imports nothing of JAX
@@ -216,6 +225,43 @@ SHARD_MESH = (2, 2)                 # (data, model)
 SHARD_TOL = 1e-5
 SHARD_TIMEOUT_S = 240
 MOE_PROMPT = 64
+
+# Phase 15: training.  15a, the backward kernels against their plain
+# versions: row 10b at di = d_inner from a fresh state, at the main
+# path's (8, 64) (the launcher's batch and sequence) and the shapes
+# below, within the forward's SLSTM_TOL; a plain gradient with d r or
+# d zifo off by the factor 1 + TRAIN_FAULT must break that bound.  Row
+# 9b at xlstm-125m's and chatglm3-6b's tables, bf16 and f32: float32
+# equal to the float32 sum in the kernel's order, bfloat16 within one
+# bfloat16 ulp of it; the sum with one repeated id dropped must break
+# both.
+TRAIN_SHAPE = (8, 64)               # the launcher's --batch, --seq
+TRAIN_SLSTM_SHAPES = ((8, 64), (4, 1), (1, 512), (8, 2048))
+TRAIN_GATHER_NS = (4, 512, 8192)
+TRAIN_FAULT = 1e-3
+# 15b: xlstm-125m through the launcher (TRAIN_STEPS, logged at 0, 10,
+# 20), through the API with onehot (TRAIN_API_STEPS, launches counted
+# per step), the preemption drill (DRILL_STEPS, preempted at
+# DRILL_PREEMPT, a checkpoint every DRILL_SAVE_EVERY), and one step of
+# the model cut to CHECK_PERIODS periods in float32, kernels against
+# the plain versions: every gradient leaf within SLSTM_TOL of the
+# leaf's largest.
+TRAIN_STEPS = 21
+TRAIN_API_STEPS = 20
+DRILL_STEPS, DRILL_PREEMPT, DRILL_SAVE_EVERY = 8, (4, 7), 3
+CHECK_PERIODS = 2
+# 15c: chatglm3-6b through the launcher's defaults, GLM_TRAIN_STEPS
+# steps, no checkpoint.
+GLM_TRAIN_STEPS = 3
+# Operations of one step of slstm_backward_kernel per (batch row,
+# feature), counted from its body as SLSTM_FLOPS_PER_STEP is (a
+# transcendental or a division as one; negations and |x| as none, being
+# operand modifiers; a tie test of max as its two comparisons): the
+# recomputation 27 (z 3, i 2, f 2, o 5, log f 4, a 1, m 1, the two
+# exponentials 4, c 3, n 2), the derivative 59 (dH 1, max(n', 1e-6) 1,
+# do 2, dc' 3, d max(n', 1e-6) 4, dn' 4, d ea 3, d eb 2, dz dc dn dA dB
+# 5, dm' 2, da 4, di 4, df 3, dz' 3, do' 3, the four d r sums 8, dh 7).
+SLSTM_BWD_FLOPS_PER_STEP = 27 + 59
 
 
 def fail(msg: str) -> None:
@@ -2677,6 +2723,560 @@ def run_sharded(geom, dev, card: str, scan_s: float) -> dict:
                 "14a": halves["int8"]["launches"]["quantize_rows"]}}
 
 
+# ----------------------------------------------------------------------
+# Training (phase 15)
+# ----------------------------------------------------------------------
+
+def excess(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """max(|got - want| - tol (1 + |want|)): > 0 where the bound fails."""
+    return float(((got - want).abs() - tol * (1 + want.abs())).max())
+
+
+def slstm_bwd_bound(B: int, S: int, di: int):
+    """Row 10b's least time for the function it computes, (zifo, r, the
+    initial state, dhs) -> (d zifo, d r): per token and feature the
+    gates (16 B) and dh (4 B) read and d zifo (16 B) written, the
+    initial state, r and d r once; the operations (the kernel's, and the
+    B-term sums of d r) over the FP32 peak.  Also the bytes this design
+    moves beyond them: the hidden states and saved (c, n, m) it reads
+    (16 B a token and feature) and the saved state the training forward
+    writes for it (12 B)."""
+    nbytes = B * S * di * 36 + 4 * B * di * 4 + 2 * 4 * di * 4
+    flops = B * S * di * SLSTM_BWD_FLOPS_PER_STEP + B * 4 * di
+    ms, by = bytes_bound(nbytes, flops)
+    return ms, by, B * S * di * (16 + 12)
+
+
+def check_slstm_backward(cfg, dev) -> dict:
+    """15a, row 10b against autograd through the plain recurrence."""
+    from repro_torch.kernels.slstm import (launch_slstm,
+                                           launch_slstm_backward,
+                                           launch_slstm_train)
+    from repro_torch.kernels.slstm_ref import (init_slstm_state,
+                                               slstm_backward_ref)
+
+    di = cfg.d_inner
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    r = torch.randn((4, di), generator=g, device=dev) / di ** 0.5
+    res = {}
+    for B, S in TRAIN_SLSTM_SHAPES:
+        zifo = torch.randn((B, S, 4, di), generator=g, device=dev)
+        dhs = torch.randn((B, S, di), generator=g, device=dev)
+        state = init_slstm_state(B, di, device=dev)
+        hs, final, states = launch_slstm_train(zifo, r, state)
+        served_hs, served_final = launch_slstm(zifo, r, state)
+        dz, dr = launch_slstm_backward(zifo, r, state, hs, states, dhs)
+        dz2, dr2 = launch_slstm_backward(zifo, r, state, hs, states, dhs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_z, want_r = slstm_backward_ref(zifo, r, state, dhs)
+        torch.cuda.synchronize()
+        plain = 1e3 * (time.perf_counter() - t0)
+        if not (torch.equal(hs, served_hs) and torch.equal(final,
+                                                          served_final)):
+            fail(f"sLSTM training forward B={B} S={S}: not the served "
+                 f"kernel's bits")
+        if not (torch.equal(dz, dz2) and torch.equal(dr, dr2)):
+            fail(f"sLSTM backward B={B} S={S}: two runs differ")
+        if not (bool(torch.isfinite(dz).all())
+                and bool(torch.isfinite(dr).all())):
+            fail(f"sLSTM backward B={B} S={S}: non-finite from a fresh "
+                 f"state")
+        ez, er = excess(dz, want_z, SLSTM_TOL), excess(dr, want_r, SLSTM_TOL)
+        if ez > 0 or er > 0:
+            fail(f"sLSTM backward B={B} S={S}: outside rtol = atol = "
+                 f"{SLSTM_TOL} of autograd through the plain recurrence "
+                 f"(excess {ez:.3e}, {er:.3e})")
+        fz = excess(dz, want_z * (1 + TRAIN_FAULT), SLSTM_TOL)
+        fr = excess(dr, want_r * (1 + TRAIN_FAULT), SLSTM_TOL)
+        if fz <= 0 or (S > 1 and fr <= 0):
+            fail(f"sLSTM backward B={B} S={S}: the bound does not see a "
+                 f"plain gradient off by 1 + {TRAIN_FAULT} (d zifo "
+                 f"{fz:.3e}, d r {fr:.3e})")
+        inner = 20 if S <= 64 else 3
+        ms = device_ms(lambda: launch_slstm_backward(zifo, r, state, hs,
+                                                     states, dhs), inner)
+        fwd_ms = device_ms(lambda: launch_slstm_train(zifo, r, state), inner)
+        served_ms = device_ms(lambda: launch_slstm(zifo, r, state), inner)
+        bms, by, extra = slstm_bwd_bound(B, S, di)
+        err_z = float(((dz - want_z).abs() / (1 + want_z.abs())).max())
+        err_r = float(((dr - want_r).abs() / (1 + want_r.abs())).max())
+        print(f"  10b B={B} S={S}: d zifo {err_z:.3e}, d r {err_r:.3e} "
+              f"(relative; faults seen: d zifo {fz:.2e}, d r {fr:.2e}); "
+              f"{ms:.5f} ms per launch on the device (bound {bms:.5f}, "
+              f"{by}; the design's extra {extra / 1e6:.1f} MB read here "
+              f"and written by the training forward, "
+              f"{1e3 * extra / PEAK_BYTES_S:.5f} ms at the HBM rate); "
+              f"training forward {fwd_ms:.5f} ms, served forward "
+              f"{served_ms:.5f}; plain {plain:.1f} ms")
+        res[(B, S)] = {"err_dzifo": err_z, "err_dr": err_r,
+                       "fault_excess_dzifo": fz, "fault_excess_dr": fr,
+                       "ms": ms, "train_forward_ms": fwd_ms,
+                       "served_forward_ms": served_ms, "plain_ms": plain,
+                       "bound_ms": bms, "bound_by": by,
+                       "design_extra_bytes": extra,
+                       "design_extra_ms": 1e3 * extra / PEAK_BYTES_S}
+        del zifo, dhs, hs, states, dz, dz2, want_z
+    return res
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at each value of the float32 ``x`` (8 bits of
+    mantissa; the smallest normal's below it)."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def check_gather_backward(tables, dev) -> dict:
+    """15a, row 9b at each (V, D) of ``tables``, bf16 and f32, at N in
+    TRAIN_GATHER_NS with a run of repeated ids and ids -1 and V."""
+    from repro_torch.kernels.gather import launch_onehot_gather_grad
+    from repro_torch.kernels.gather_ref import gather_grad_ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    res = {}
+    for V, D in tables:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            for N in TRAIN_GATHER_NS:
+                ids = torch.randint(0, V, (N,), generator=g, device=dev)
+                ids[0], ids[1] = -1, V
+                if N >= 8:
+                    ids[2:6] = ids[6]
+                dout = torch.randn((N, D), generator=g, device=dev).to(dtype)
+                got = launch_onehot_gather_grad(ids, dout, V)
+                again = launch_onehot_gather_grad(ids, dout, V)
+                torch.cuda.synchronize()
+                exact = gather_grad_ref(ids, dout.float(), V)
+                faulty = ids.clone()
+                faulty[2 if N >= 8 else 3] = -1
+                wrong = gather_grad_ref(faulty, dout.float(), V)
+                if dtype == torch.float32:
+                    ok, seen = torch.equal(got, exact), not torch.equal(
+                        got, wrong)
+                    err = float((got - exact).abs().max())
+                else:
+                    ok = bool(((got.float() - exact).abs()
+                               <= bf16_ulp(exact)).all())
+                    seen = not bool(((got.float() - wrong).abs()
+                                     <= bf16_ulp(wrong)).all())
+                    err = float(((got.float() - exact).abs()
+                                 / bf16_ulp(exact)).max())
+                bitwise = torch.equal(got, gather_grad_ref(ids, dout, V))
+                if not ok or not seen or not torch.equal(got, again):
+                    fail(f"gather backward {name} V={V} N={N}: against the "
+                         f"float32 sum in the kernel's order: within "
+                         f"bound {ok}, dropped id seen {seen}, repeatable "
+                         f"{torch.equal(got, again)}")
+                del exact, wrong, again, got
+                clamped = ids.clamp(0, V - 1)
+                ms = device_ms(lambda: launch_onehot_gather_grad(
+                    ids, dout, V), 5 if N > 512 or D > 1024 else 20)
+                lib = device_ms(lambda: torch.ops.aten.embedding_dense_backward(
+                    dout, clamped, V, -1, False),
+                    5 if N > 512 or D > 1024 else 20)
+                plain = per_call_ms(lambda: gather_grad_ref(ids, dout, V), 2,
+                                    reps=3)
+                bms, by = bytes_bound((V + N) * D * dout.element_size()
+                                      + N * 8)
+                print(f"  9b {name} V={V} D={D} N={N}: "
+                      f"{'max|d| ' + str(err) if dtype == torch.float32 else f'{err:.3f} ulp'}"
+                      f" vs the ordered float32 sum (bitwise the plain "
+                      f"version: {bitwise}); {ms:.5f} ms per launch on the "
+                      f"device (bound {bms:.5f}, {by}); plain {plain:.3f} "
+                      f"ms; F.embedding's gradient {lib:.5f} ms")
+                res[(V, name, N)] = {"err": err, "bitwise_plain": bitwise,
+                                     "ms": ms, "plain_ms": plain,
+                                     "library_ms": lib, "bound_ms": bms,
+                                     "bound_by": by}
+                del dout
+            torch.cuda.empty_cache()
+    return res
+
+
+def parse_launcher(out: str) -> dict:
+    """The losses, the finish line and the summary of the launcher's
+    output."""
+    import re
+
+    losses = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"step\s+(\d+) loss=([-\d.naif]+)", out)}
+    fin = re.search(r"finished at step (\d+) \((\d+) restarts\)", out)
+    summ = re.search(r"(\d+) steps on \S+: median ([\d.]+) s a step \(first "
+                     r"([\d.]+) s; the update median ([\d.]+) s\), "
+                     r"([\d.]+) tokens/s; loss ([-\d.naif]+) at step (\d+)"
+                     r"(?:; peak allocated ([\d.]+) GiB)?", out)
+    if fin is None or summ is None:
+        fail(f"the launcher's output lacks its finish or summary line:\n"
+             f"{out[-2000:]}")
+    return {"losses": losses, "finished_at": int(fin.group(1)),
+            "restarts": int(fin.group(2)), "median_s": float(summ.group(2)),
+            "first_s": float(summ.group(3)),
+            "median_update_s": float(summ.group(4)),
+            "tokens_per_s": float(summ.group(5)),
+            "last_loss": float(summ.group(6)),
+            "peak_gib": (float(summ.group(8)) if summ.group(8) else None)}
+
+
+def run_launcher(args: list, timeout: float) -> tuple[dict, float]:
+    """``python -m repro_torch.launch.train ARGS`` in a child process on
+    this card: its parsed output and wall seconds."""
+    env = dict(os.environ, PYTHONPATH=str(_SRC))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *args],
+            env=env, capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"the launcher {args} outlasted {timeout} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"the launcher {args} exited {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    for line in proc.stdout.strip().splitlines():
+        print(f"    | {line}")
+    return parse_launcher(proc.stdout), wall
+
+
+def train_launcher_xlstm(cfg) -> dict:
+    """15b through the launcher: TRAIN_STEPS steps of xlstm-125m at the
+    launcher's defaults, a checkpoint every 5; the loss after the last
+    step below the first's, and the checkpoints on disk."""
+    from repro_torch.ckpt import all_steps
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        res, wall = run_launcher(["--arch", cfg.name, "--steps",
+                                  str(TRAIN_STEPS), "--save-every", "5",
+                                  "--ckpt", ck], timeout=600)
+        steps = all_steps(ck)
+    first, last = res["losses"].get(0), res["last_loss"]
+    if res["finished_at"] != TRAIN_STEPS or first is None \
+            or not np.isfinite(last) or not last < first \
+            or steps != [10, 15, 20]:
+        fail(f"xlstm launcher: finished at {res['finished_at']}, loss "
+             f"{first} -> {last}, checkpoints {steps}")
+    print(f"  launcher: {TRAIN_STEPS} steps in {wall:.1f} s (process), "
+          f"loss {first:.4f} -> {last:.4f}, median {res['median_s']:.4f} s "
+          f"a step (the update {res['median_update_s']:.4f} of it), "
+          f"{res['tokens_per_s']:.1f} tokens/s, peak "
+          f"{res['peak_gib']} GiB; checkpoints kept {steps}")
+    return dict(res, wall_s=wall, checkpoints=steps)
+
+
+def train_api(cfg, dev) -> dict:
+    """15b through the API: TRAIN_API_STEPS steps of ``cfg`` (onehot) at
+    TRAIN_SHAPE, each launching rows 9, 9b, 10 (forward and remat) and
+    10b as many times as the model has those layers; the counts read
+    after the run are the path's launches."""
+    from repro_torch.data import TokenDataset
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import init_model
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+
+    B, S = TRAIN_SHAPE
+    n_slstm = sum(k == "slstm" for k in cfg.block_pattern) * cfg.n_periods
+    per_step = {"onehot_gather": 1, "onehot_gather_backward": 1,
+                "slstm": 2 * n_slstm, "slstm_backward": n_slstm}
+    ds = TokenDataset(cfg.vocab, S, B, device=str(dev))
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=TRAIN_API_STEPS)
+    model = init_model(cfg, seed=SEED, device=dev)
+    opt = init_opt_state(model, ocfg)
+    update_s = []
+    step = make_train_step(cfg, ocfg, update_times=update_s)
+    batches = [ds.batch(i) for i in range(TRAIN_API_STEPS)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    times, losses, counts = [], [], []
+    for b in batches:
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        counts.append({k: LAUNCHES[k] - before[k] for k in per_step})
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    bad = [i for i, c in enumerate(counts) if c != per_step]
+    if bad or not losses[-1] < losses[0] or not np.isfinite(losses).all():
+        fail(f"API training: launches per step {counts[bad[0]] if bad else per_step} "
+             f"(want {per_step}), loss {losses[0]} -> {losses[-1]}")
+    med = statistics.median(times[1:])
+    upd = statistics.median(update_s[1:])
+    print(f"  API, onehot: {TRAIN_API_STEPS} steps, launches per step "
+          f"{per_step}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; median "
+          f"{med:.4f} s a step (first {times[0]:.3f}; the AdamW update "
+          f"{upd:.4f} of it), {B * S / med:.1f} tokens/s; peak {peak:.2f} "
+          f"GiB")
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": per_step,
+            "losses": losses, "step_s": times, "median_s": med,
+            "update_s": update_s, "median_update_s": upd,
+            "tokens_per_s": B * S / med, "peak_gib": peak}
+
+
+def preemption_drill(cfg, dev) -> dict:
+    """15b, the drill: DRILL_STEPS steps through ``run_with_restarts``,
+    preempted once at each of DRILL_PREEMPT, against the same steps
+    uninterrupted: the parameters and the optimizer state bitwise, and
+    the drill's peak of allocated memory (above what was allocated
+    before it) no more than the uninterrupted run's and one leaf: a
+    restart holds one copy of the state."""
+    from repro_torch.data import TokenDataset
+    from repro_torch.ft.manager import (FaultTolerantLoop,
+                                        PreemptionSimulator,
+                                        run_with_restarts)
+    from repro_torch.models import init_model
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+
+    B, S = TRAIN_SHAPE
+    ds = TokenDataset(cfg.vocab, S, B, device=str(dev))
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=DRILL_STEPS)
+    step = make_train_step(cfg, ocfg)
+
+    def init_fn():
+        model = init_model(cfg, seed=SEED, device=dev).requires_grad_(True)
+        return {"params": model, "opt": init_opt_state(model, ocfg)}
+
+    def step_fn(state, i):
+        p, o, m = step(state["params"], state["opt"], ds.batch(i))
+        return {"params": p, "opt": o}, m
+
+    def peak_above(base: int) -> int:
+        return torch.cuda.max_memory_allocated(dev) - base
+
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ref = init_fn()
+    for i in range(DRILL_STEPS):
+        ref, _ = step_fn(ref, i)
+    ref_peak = peak_above(base)
+    leaf = max(t.numel() * t.element_size() for t in
+               [*ref["params"].parameters(), *ref["opt"]["m"].values()])
+    sim, fired = PreemptionSimulator(set(DRILL_PREEMPT)), set()
+
+    def health(i):
+        if i in sim.at_steps and i not in fired:
+            fired.add(i)
+            return True
+        return False
+
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        state, n, restarts = run_with_restarts(
+            lambda: FaultTolerantLoop(os.path.join(tmp, "ck"),
+                                      save_every=DRILL_SAVE_EVERY,
+                                      health=health),
+            init_fn, step_fn, DRILL_STEPS)
+    wall = time.perf_counter() - t0
+    drill_peak = peak_above(base)
+    same = all(torch.equal(a, b) for a, b in zip(
+        state["params"].parameters(), ref["params"].parameters()))
+    for key in ("m", "v"):
+        same = same and all(torch.equal(state["opt"][key][k],
+                                        ref["opt"][key][k])
+                            for k in ref["opt"][key])
+    if restarts != len(DRILL_PREEMPT) or n != DRILL_STEPS or not same \
+            or drill_peak > ref_peak + leaf:
+        fail(f"preemption drill: {restarts} restarts, finished at {n}, "
+             f"bitwise equal to the uninterrupted run: {same}; peak "
+             f"{drill_peak} B against the uninterrupted {ref_peak} B and "
+             f"one leaf {leaf} B")
+    print(f"  drill: preempted at {list(DRILL_PREEMPT)}, {restarts} "
+          f"restarts, {wall:.1f} s; parameters and moments bitwise the "
+          f"uninterrupted run's; peak allocated {drill_peak / 2**30:.3f} "
+          f"GiB above the start (uninterrupted {ref_peak / 2**30:.3f})")
+    del state, ref
+    torch.cuda.empty_cache()
+    return {"restarts": restarts, "wall_s": wall, "bitwise": same,
+            "peak_bytes": drill_peak, "uninterrupted_peak_bytes": ref_peak}
+
+
+def check_train_step(cfg, dev) -> dict:
+    """15b, kernels against plain versions: one step's gradients of
+    ``cfg`` cut to CHECK_PERIODS periods in float32 (onehot) at
+    TRAIN_SHAPE, on the kernels and on the plain versions (autograd
+    through ``slstm_recurrence_ref`` and ``gather_ref``), every leaf
+    within SLSTM_TOL of its largest |plain|, a gradient of ``r`` off by
+    1 + TRAIN_FAULT must break that; and the parameters after the step
+    from the same state (Adam's first step follows each gradient's
+    sign: none more than lr from the plain step's, at most 1 % more
+    than lr / 10)."""
+    import repro_torch.core.gather_ops as gather_ops
+    from repro_torch.data import TokenDataset
+    from repro_torch.kernels import slstm_ops
+    from repro_torch.kernels.gather_ref import gather_ref
+    from repro_torch.kernels.slstm_ref import (init_slstm_state,
+                                               slstm_recurrence_ref)
+    from repro_torch.models import init_model, loss_fn
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training.train import _grads
+
+    cut = dataclasses.replace(cfg, n_layers=CHECK_PERIODS * cfg.period,
+                              param_dtype="float32", gather_impl="onehot")
+    B, S = TRAIN_SHAPE
+    batch = TokenDataset(cut.vocab, S, B, device=str(dev)).batch(0)
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=0)
+
+    def plain_recurrence(zifo, r, state=None):
+        if state is None:
+            state = init_slstm_state(zifo.shape[0], zifo.shape[-1],
+                                     device=zifo.device)
+        return slstm_recurrence_ref(zifo.float(), r.float(), state)
+
+    def run(plain: bool):
+        model = init_model(cut, seed=SEED, device=dev).requires_grad_(True)
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(patched(slstm_ops, "slstm_recurrence",
+                                            plain_recurrence))
+                stack.enter_context(patched(
+                    gather_ops, "cuda_onehot_gather",
+                    lambda t, i: gather_ref(t, i.to(t.device))))
+            zero_launches()
+            loss, _ = loss_fn(model, cut, batch)
+            grads = {k: v.detach() for k, v in _grads(model, loss).items()}
+            model, _, _ = make_train_step(cut, ocfg)(
+                model, init_opt_state(model, ocfg), batch)
+            torch.cuda.synchronize()
+        from repro_torch.kernels import LAUNCHES
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        return float(loss.detach()), grads, params, dict(LAUNCHES)
+
+    lk, gk, pk, launches = run(False)
+    lp, gp, pp, plain_launches = run(True)
+    n_slstm = CHECK_PERIODS * sum(k == "slstm" for k in cut.block_pattern)
+    if launches["slstm_backward"] != 2 * n_slstm \
+            or launches["onehot_gather_backward"] != 2 \
+            or any(plain_launches.values()):
+        fail(f"train-step check: launches {launches}, plain "
+             f"{plain_launches}")
+
+    def worst(grads):
+        return max(float((grads[k] - gp[k]).abs().max())
+                   / max(float(gp[k].abs().max()), 1e-30) for k in gp)
+
+    err = worst(gk)
+    r_name = next(k for k in gp if k.endswith("r_zifo"))
+    faulty = dict(gk, **{r_name: gp[r_name] * (1 + TRAIN_FAULT)})
+    seen = worst(faulty)
+    lr = ocfg.lr
+    d = {k: (pk[k] - pp[k]).abs() for k in pp}
+    far = sum(int((v > lr / 10).sum()) for v in d.values())
+    total = sum(v.numel() for v in d.values())
+    dmax = max(float(v.max()) for v in d.values())
+    if not err <= SLSTM_TOL or not seen > SLSTM_TOL or dmax > lr \
+            or far > total // 100 or abs(lk - lp) > SLSTM_TOL * max(1, abs(lp)):
+        fail(f"train-step check: gradients {err:.3e} of each leaf's "
+             f"largest (bound {SLSTM_TOL}; fault {seen:.3e}), loss {lk} vs "
+             f"{lp}, parameters {dmax:.3e} (lr {lr}), {far} of {total} "
+             f"beyond lr/10")
+    print(f"  one step at {cut.n_layers} layers, float32: gradients within "
+          f"{err:.3e} of each leaf's largest (bound {SLSTM_TOL}; d r off "
+          f"by 1 + {TRAIN_FAULT}: {seen:.3e}); loss {lk:.6f} vs {lp:.6f}; "
+          f"parameters max |d| {dmax:.3e} (lr {lr}), {far} of {total} "
+          f"beyond lr/10")
+    del gk, gp, pk, pp
+    torch.cuda.empty_cache()
+    return {"grad_err": err, "fault": seen, "param_max_d": dmax,
+            "param_far": far, "params": total, "launches": launches}
+
+
+def glm_train_reckoning(cfg) -> dict:
+    """The peak a chatglm3-6b step needs with float32 moments: parameters
+    and gradients in bf16, two float32 moments, and the float32 logits
+    (with their log-softmax and gradient) at TRAIN_SHAPE."""
+    n = cfg.param_count()
+    B, S = TRAIN_SHAPE
+    parts = {"params": 2 * n, "grads": 2 * n, "moments": 8 * n,
+             "logits": 3 * 4 * B * S * cfg.vocab}
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def run_train(cfg, glm_cfg, dev, card: str) -> list:
+    """Phase 15 on ``cfg`` (xlstm-125m) and ``glm_cfg`` (chatglm3-6b);
+    prints the details and returns the ``kernels`` entries of rows 9b
+    and 10b, and the main path's launches of rows 9 and 10."""
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    print(f"phase 15a: the backward kernels vs plain: row 10b at "
+          f"di={cfg.d_inner}, row 9b at V={cfg.vocab} D={cfg.d_model} and "
+          f"V={glm_cfg.vocab} D={glm_cfg.d_model}")
+    bwd = check_slstm_backward(cfg, dev)
+    gbwd = check_gather_backward(((cfg.vocab, cfg.d_model),
+                                   (glm_cfg.vocab, glm_cfg.d_model)), dev)
+    print(f"phase 15b: {cfg.name} trained at full width")
+    launcher = train_launcher_xlstm(cfg)
+    api = train_api(dataclasses.replace(cfg, gather_impl="onehot"), dev)
+    drill = preemption_drill(dataclasses.replace(cfg, gather_impl="onehot"),
+                             dev)
+    check = check_train_step(cfg, dev)
+    reck = glm_train_reckoning(glm_cfg)
+    print(f"phase 15c: {glm_cfg.name} trained at full width through the "
+          f"launcher's defaults, {GLM_TRAIN_STEPS} steps; reckoned peak "
+          f"{reck['total'] / 1e9:.2f} GB ({reck['total'] / 2**30:.2f} GiB: "
+          f"{', '.join(f'{k} {v / 1e9:.2f}' for k, v in reck.items() if k != 'total')} GB) "
+          f"of {torch.cuda.get_device_properties(dev).total_memory / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        glm, glm_wall = run_launcher(["--steps", str(GLM_TRAIN_STEPS),
+                                      "--save-every", "0", "--ckpt",
+                                      os.path.join(tmp, "ck")], timeout=900)
+    if glm["finished_at"] != GLM_TRAIN_STEPS or not np.isfinite(
+            glm["last_loss"]) or not np.isfinite(glm["losses"].get(0, np.nan)):
+        fail(f"chatglm3-6b training: {glm}")
+    B, S = TRAIN_SHAPE
+    print(f"  {glm_cfg.name}: loss {glm['losses'][0]:.4f} -> "
+          f"{glm['last_loss']:.4f}; median {glm['median_s']:.4f} s a step "
+          f"(first {glm['first_s']:.3f}; the AdamW update "
+          f"{glm['median_update_s']:.4f} of it), {glm['tokens_per_s']:.1f} "
+          f"tokens/s; peak allocated {glm['peak_gib']} GiB (reckoned "
+          f"{reck['total'] / 2**30:.2f}); process {glm_wall:.1f} s")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  phase 15 took {phase_s:.1f} s")
+    src = "src/repro_torch/kernels/csrc/"
+    main10 = bwd[TRAIN_SHAPE]
+    main9 = gbwd[(cfg.vocab, "bfloat16", B * S)]
+    k = [{"name": "slstm_backward", "route": "cuda",
+          "source": src + "slstm.cu",
+          "replaces": "src/repro/kernels/slstm.py:34",
+          "derivative_of": "src/repro/models/ssm.py:317",
+          "launches": api["launches"]["slstm_backward"],
+          "max_abs_err": max(max(v["err_dzifo"], v["err_dr"])
+                             for v in bwd.values()),
+          "ms": main10["ms"], "plain_ms": main10["plain_ms"],
+          "bound_ms": main10["bound_ms"], "bound_by": main10["bound_by"],
+          "library_ms": None,
+          "by_shape": {f"B={b}/S={s_}": v for (b, s_), v in bwd.items()}},
+         {"name": "onehot_gather_backward", "route": "cuda",
+          "source": src + "gather.cu",
+          "replaces": "src/repro/kernels/gather.py:36",
+          "derivative_of": "src/repro/core/gather_ops.py:52",
+          "launches": api["launches"]["onehot_gather_backward"],
+          "max_abs_err": max(v["err"] for (_, d, _), v in gbwd.items()
+                             if d == "float32"),
+          "ms": main9["ms"], "plain_ms": main9["plain_ms"],
+          "bound_ms": main9["bound_ms"], "bound_by": main9["bound_by"],
+          "library_ms": main9["library_ms"],
+          "by_case": {f"V={v}/{d}/N={n}": r
+                      for (v, d, n), r in gbwd.items()}}]
+    print(json.dumps({"train_detail": {
+        "card": card, "phase_s": phase_s,
+        "launcher_xlstm": launcher, "api_onehot": api, "drill": drill,
+        "train_step_check": check, "glm_reckoning": reck,
+        "glm": dict(glm, wall_s=glm_wall)}}))
+    return k, {"onehot_gather": api["launches"]["onehot_gather"],
+               "slstm": api["launches"]["slstm"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -2711,6 +3311,12 @@ def main() -> int:
     for entry in record["kernels"]:
         if entry["name"] in sharded:
             entry["sharded_launches"] = sharded[entry["name"]]
+    train, train_launches = run_train(ARCHS[LM_ARCH], ARCHS[GLM_ARCH], dev,
+                                      card)
+    for entry in record["kernels"]:
+        if entry["name"] in train_launches:
+            entry["train_launches"] = train_launches[entry["name"]]
+    record["kernels"] += train
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

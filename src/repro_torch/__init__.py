@@ -2,7 +2,11 @@
 hand-written CUDA kernels for an NVIDIA H100, on one card or sharded
 over a ``torch.distributed`` mesh, and the language-model stack that
 serves all ten of the reference's architectures (:mod:`repro_torch.models`,
-:mod:`repro_torch.serving`).
+:mod:`repro_torch.serving`) and trains them on one device
+(:mod:`repro_torch.training`, :mod:`repro_torch.ckpt`,
+:mod:`repro_torch.ft`, :mod:`repro_torch.data`,
+``python -m repro_torch.launch.train``), the gather's and the sLSTM
+recurrence's backward on the card's kernels too.
 
 A port of the JAX package ``repro``, which stays the reference: this
 package never imports it (nor JAX).  The public surface is

@@ -26,7 +26,8 @@ from .quant import RowQuant
 __all__ = ["geometry_from_reference", "filter_plan_from_reference",
            "tensor_from_reference", "rowquant_from_reference",
            "plan_from_reference", "lm_params_from_reference",
-           "lm_cache_from_reference"]
+           "lm_cache_from_reference", "opt_state_from_reference",
+           "lm_tree_to_reference"]
 
 
 def geometry_from_reference(fields: dict) -> Geometry:
@@ -179,3 +180,93 @@ def lm_cache_from_reference(cache: dict, *, device="cuda") -> dict:
         return _array(tree).to(dev)
 
     return convert(cache)
+
+
+# ----------------------------------------------------------------------
+# Training state: the reference's stacked layout <-> the port's names
+# ----------------------------------------------------------------------
+
+_STACKS = {"blocks": "layers", "enc_blocks": "enc_layers"}
+_PORT_STACKS = {v: k for k, v in _STACKS.items()}
+
+
+def _is_q8(node) -> bool:
+    return isinstance(node, dict) and set(node) == {"q", "s"}
+
+
+def _per_layer(tree: dict, cfg) -> dict:
+    """``{port name: (reference leaf, index or None)}`` of a tree in the
+    reference's layout (a leaf an array or an int8 moment ``{"q",
+    "s"}``): layer ``i`` of ``layers`` is entry ``i // period`` of
+    ``blocks/b{i % period}``, encoder layer ``i`` entry ``i`` of
+    ``enc_blocks/b0``."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict) and not _is_q8(node):
+            for k, v in node.items():
+                walk(v, path + (k,))
+            return
+        if path[0] not in _STACKS:
+            out[".".join(path)] = (node, None)
+            return
+        stack, slot, rest = path[0], path[1], ".".join(path[2:])
+        j = int(slot.removeprefix("b"))
+        n = (node["q"] if _is_q8(node) else np.asarray(node)).shape[0]
+        for idx in range(n):
+            i = idx * cfg.period + j if stack == "blocks" else idx
+            out[f"{_STACKS[stack]}.{i}.{rest}"] = (node, idx)
+
+    walk(tree, ())
+    return out
+
+
+def opt_state_from_reference(opt_state: dict, cfg, *,
+                             device="cuda") -> dict:
+    """The reference's AdamW state (``{"m", "v", "step"}``, moments in its
+    stacked layout as numpy, int8 moments as ``{"q", "s"}``) in the
+    port's layout (:func:`repro_torch.training.init_opt_state`): moments
+    keyed by parameter name, each layer's slice of the stack, on
+    ``device``, bitwise in each leaf's dtype."""
+    dev = resolve_device(device)
+
+    def take(node, idx):
+        t = _array(node)
+        return (t if idx is None else t[idx]).contiguous().to(dev)
+
+    def moments(tree):
+        out = {}
+        for name, (node, idx) in _per_layer(tree, cfg).items():
+            out[name] = ({"q": take(node["q"], idx), "s": take(node["s"], idx)}
+                         if _is_q8(node) else take(node, idx))
+        return out
+
+    return {"m": moments(opt_state["m"]), "v": moments(opt_state["v"]),
+            "step": _array(opt_state["step"]).to(torch.int32).to(dev)}
+
+
+def lm_tree_to_reference(named: dict, cfg) -> dict:
+    """The inverse for parameters and gradients: ``{port name: tensor}``
+    (``dict(model.named_parameters())``, or gradients keyed alike) as the
+    reference's stacked tree of float32 numpy arrays (bfloat16 widens
+    exactly), each stack in layer order."""
+    stacks: dict = {}
+    out: dict = {}
+    for name, t in named.items():
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        head, _, rest = name.partition(".")
+        stack = _PORT_STACKS.get(head)
+        if stack is None:
+            out[name] = arr
+            continue
+        i_str, _, leaf = rest.partition(".")
+        i = int(i_str)
+        p, j = (divmod(i, cfg.period) if stack == "blocks" else (i, 0))
+        stacks.setdefault((stack, f"b{j}", leaf), {})[p] = arr
+    for (stack, slot, leaf), by_index in stacks.items():
+        node = out.setdefault(stack, {}).setdefault(slot, {})
+        *dirs, last = leaf.split(".")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[last] = np.stack([by_index[k] for k in sorted(by_index)])
+    return out

@@ -7,9 +7,10 @@ per projection wire: float32, bfloat16, int8), ``csrc/backproject_strip.cu``
 (the strip-staged back projections K3 ``strip_db``, K4 ``strip_micro``
 and K5 ``strip_shared``, on the same three wires), ``csrc/quant.cu``
 (the int8 row encoder), and for the language model ``csrc/gather.cu``
-(the embedding's one-hot row gather) and ``csrc/slstm.cu`` (the sLSTM
-recurrence).  Nothing is built or loaded at import time; the first
-launch builds.
+(the embedding's one-hot row gather and its backward) and
+``csrc/slstm.cu`` (the sLSTM recurrence, its training instance and its
+backward).  Nothing is built or loaded at import time; the first launch
+builds.
 """
 
 from .backproject import LAUNCHES

@@ -51,7 +51,8 @@ STRIP_KINDS = {"db": 0, "micro": 1, "shared": 2}
 # it wants to read.  The strip kernels count per wire, and K3/K4 launched
 # with P = 1 (TPU kernel rows 7 and 8) under their own ``_p1`` keys.
 LAUNCHES = {"backproject": 0, "backproject_bf16": 0, "backproject_int8": 0,
-            "quantize_rows": 0, "onehot_gather": 0, "slstm": 0}
+            "quantize_rows": 0, "onehot_gather": 0, "slstm": 0,
+            "onehot_gather_backward": 0, "slstm_backward": 0}
 LAUNCHES.update({f"strip_{k}{w}{p1}": 0 for k in STRIP_KINDS
                  for w in _WIRE_SUFFIX.values()
                  for p1 in ("", "_p1") if k != "shared" or not p1})

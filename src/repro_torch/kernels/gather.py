@@ -8,6 +8,10 @@ float32 or bfloat16 instance on PyTorch's current stream, counts the
 launch in :data:`repro_torch.kernels.backproject.LAUNCHES` (key
 ``"onehot_gather"``) and raises when the launch is refused.  Its plain
 version is :func:`repro_torch.kernels.gather_ref.gather_ref`.
+
+:func:`launch_onehot_gather_grad` runs the backward kernel (row 9b, key
+``"onehot_gather_backward"``), ``d table = onehot(ids)^T d out``; its
+plain version is :func:`repro_torch.kernels.gather_ref.gather_grad_ref`.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 from . import _build
 from .backproject import LAUNCHES
 
-__all__ = ["launch_onehot_gather"]
+__all__ = ["launch_onehot_gather", "launch_onehot_gather_grad"]
 
 _ENTRIES = {torch.float32: "onehot_gather_f32_launch",
             torch.bfloat16: "onehot_gather_bf16_launch"}
@@ -28,10 +32,17 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_void_p]
 
 
-def _lib(dtype: torch.dtype):
-    fn = getattr(_build.load("gather"), _ENTRIES[dtype])
+_GRAD_ENTRIES = {torch.float32: "onehot_gather_grad_f32_launch",
+                 torch.bfloat16: "onehot_gather_grad_bf16_launch"}
+_GRAD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def _lib(dtype: torch.dtype, grad: bool = False):
+    entry = (_GRAD_ENTRIES if grad else _ENTRIES)[dtype]
+    fn = getattr(_build.load("gather"), entry)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _GRAD_ARGTYPES if grad else _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 
@@ -72,3 +83,48 @@ def launch_onehot_gather(table: torch.Tensor,
                            f"error {rc}")
     LAUNCHES["onehot_gather"] += 1
     return out
+
+
+def launch_onehot_gather_grad(ids: torch.Tensor, dout: torch.Tensor,
+                              V: int) -> torch.Tensor:
+    """``d table`` ``(V, D)`` of the row gather on the card: row ``v`` the
+    float32 sum, in position order, of the rows of ``dout`` whose id is
+    ``v``, rounded once to ``dout``'s dtype; zero where no id is ``v``;
+    ids outside ``[0, V)`` add nothing.  ``ids``: ``(N,)`` int64;
+    ``dout``: ``(N, D)`` float32 or bfloat16; both contiguous on one CUDA
+    device.  The ids are sorted here (``torch.sort``, stable) to group
+    each row's positions; the kernel does the rest."""
+    if dout.dtype not in _GRAD_ENTRIES:
+        raise TypeError(f"dout is {dout.dtype}; the kernel takes float32 "
+                        f"or bfloat16")
+    if ids.dtype != torch.int64:
+        raise TypeError(f"ids are {ids.dtype}; the kernel takes int64")
+    for name, t in (("dout", dout), ("ids", ids)):
+        if not t.is_cuda or t.device != dout.device:
+            raise ValueError(f"{name} lies on {t.device}; the kernel needs "
+                             f"both operands on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if dout.ndim != 2 or ids.ndim != 1 or ids.shape[0] != dout.shape[0]:
+        raise ValueError(f"ids must be (N,) and dout (N, D); got "
+                         f"{tuple(ids.shape)} and {tuple(dout.shape)}")
+    N, D = (int(n) for n in dout.shape)
+    V = int(V)
+    dtable = torch.empty((V, D), dtype=dout.dtype, device=dout.device)
+    if V == 0 or D == 0:
+        return dtable
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    starts = torch.empty((V + 1,), dtype=torch.int64, device=dout.device)
+    vec16 = (D * dout.element_size() % 16 == 0
+             and dout.data_ptr() % 16 == 0 and dtable.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(dout.device).cuda_stream
+    with torch.cuda.device(dout.device):
+        rc = _lib(dout.dtype, grad=True)(
+            sorted_ids.data_ptr(), perm.data_ptr(), dout.data_ptr(),
+            starts.data_ptr(), dtable.data_ptr(), N, V, D, int(vec16),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"onehot_gather backward kernel launch failed: "
+                           f"CUDA error {rc}")
+    LAUNCHES["onehot_gather_backward"] += 1
+    return dtable

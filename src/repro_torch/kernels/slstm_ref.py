@@ -6,14 +6,20 @@ m)`` (``m = -inf`` for a fresh sequence, :func:`init_slstm_state`) to the
 final one.  The CUDA kernel ``csrc/slstm.cu`` computes the same function
 on the card.  ``softplus`` is JAX's, ``logaddexp(x, 0)``:
 ``torch.nn.functional.softplus`` turns into the identity above 20.
+
+:func:`slstm_backward_ref`, PyTorch's autograd through
+:func:`slstm_recurrence_ref`, is the plain version of the backward
+kernel (row 10b): the derivative of the reference's cell as
+``jax.grad`` takes it, the gradient split evenly at a tie of each
+``maximum``.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["init_slstm_state", "slstm_cell_ref", "slstm_recurrence_ref",
-           "softplus"]
+__all__ = ["init_slstm_state", "slstm_backward_ref", "slstm_cell_ref",
+           "slstm_recurrence_ref", "softplus"]
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -43,7 +49,8 @@ def slstm_cell_ref(gates: torch.Tensor, r: torch.Tensor,
     m_new = torch.maximum(logf + m, ig)
     c_new = c * torch.exp(logf + m - m_new) + torch.exp(ig - m_new) * z
     n_new = nvec * torch.exp(logf + m - m_new) + torch.exp(ig - m_new)
-    h_new = o * c_new / torch.clamp_min(n_new, 1e-6)
+    h_new = o * c_new / torch.maximum(n_new, torch.full_like(n_new,
+                                                            1e-6))
     return torch.stack([c_new, n_new, h_new, m_new])
 
 
@@ -60,3 +67,17 @@ def slstm_recurrence_ref(zifo: torch.Tensor, r: torch.Tensor,
     if not hs:
         return zifo.new_zeros(zifo.shape[:2] + zifo.shape[3:]), state
     return torch.stack(hs, dim=1), state
+
+
+def slstm_backward_ref(zifo: torch.Tensor, r: torch.Tensor,
+                       state: torch.Tensor, dhs: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient ``dhs`` (B, S, di) of the hidden states of
+    :func:`slstm_recurrence_ref` from ``state`` taken back to ``zifo``
+    and ``r``: ``(d zifo, d r)``, float32, by autograd through the plain
+    recurrence."""
+    with torch.enable_grad():
+        z = zifo.detach().float().requires_grad_(True)
+        w = r.detach().float().requires_grad_(True)
+        hs, _ = slstm_recurrence_ref(z, w, state.detach().float())
+        return torch.autograd.grad(hs, (z, w), dhs.float())

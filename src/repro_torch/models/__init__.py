@@ -5,7 +5,7 @@ frontends; the sLSTM recurrence and the one-hot embedding gather on the
 card's kernels."""
 
 from .model import (GenericLM, decode_step, forward, init_cache, init_model,
-                    prefill)
+                    loss_fn, prefill)
 
 __all__ = ["GenericLM", "decode_step", "forward", "init_cache", "init_model",
-           "prefill"]
+           "loss_fn", "prefill"]

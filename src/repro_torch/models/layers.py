@@ -36,8 +36,10 @@ class Params(nn.Module):
 
     ``generator=None`` allocates the normal draws without filling them,
     for values loaded afterwards (:mod:`repro_torch.convert`).
-    Parameters do not require gradients: the port serves, it does not
-    train yet.
+    Parameters are drawn not requiring gradients, which is what serving
+    wants; ``requires_grad_(True)`` on the model makes them trainable, as
+    the training launcher and :func:`repro_torch.training.make_train_step`
+    do.
     """
 
     def __init__(self, dtype: torch.dtype, device: torch.device,

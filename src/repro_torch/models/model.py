@@ -16,10 +16,14 @@ frontends are the reference's stubs: one linear adapter over
 precomputed frames (``batch["frames"]``) or patches
 (``batch["patches"]``) of :data:`FRONTEND_DIM` features.
 
-Entry points, as the reference's (no remat; the port does not train):
+Entry points, as the reference's:
 
 * :func:`init_model`   -> :class:`GenericLM`, drawn from a seed
-* :func:`forward`      -> (logits, aux loss)
+* :func:`forward`      -> (logits, aux loss); ``remat=True`` recomputes
+  each period's activations in the backward, as the reference's
+  ``jax.checkpoint`` of its scanned period
+* :func:`loss_fn`      -> (LM loss + aux, metrics), what training
+  differentiates (:mod:`repro_torch.training`)
 * :func:`prefill`      -> (last-token logits, filled cache)
 * :func:`decode_step`  -> (logits, cache)
 * :func:`init_cache`   -> decode cache
@@ -32,10 +36,13 @@ a mesh and has no counterpart yet.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from .blocks import (block_forward, block_prefill, block_step, init_block,
@@ -44,8 +51,8 @@ from .layers import (DTYPES, Params, apply_norm, dense, embed_lookup,
                      init_dense, init_embed, init_norm, make_positions_mrope,
                      unembed)
 
-__all__ = ["FRONTEND_DIM", "GenericLM", "init_model", "forward", "prefill",
-           "decode_step", "init_cache"]
+__all__ = ["FRONTEND_DIM", "GenericLM", "init_model", "forward", "loss_fn",
+           "prefill", "decode_step", "init_cache"]
 
 # Stub modality frontends: precomputed features -> linear adapter.
 FRONTEND_DIM = {"audio": 80, "vision": 1176}
@@ -204,25 +211,70 @@ def _context(params, cfg, batch, dtype):
 # Forward / serving
 # ----------------------------------------------------------------------
 
+def _period(params: GenericLM, cfg, p: int, positions, kw: dict,
+            moe_impl: str, dtype, x: torch.Tensor):
+    """The blocks of period ``p`` on ``x``: (x, the period's aux loss)."""
+    flags = _moe_flags(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j, kind in enumerate(cfg.block_pattern):
+        x, a = block_forward(params.layers[p * cfg.period + j], cfg, kind,
+                             flags[j], x, positions, moe_impl=moe_impl,
+                             dtype=dtype, **kw)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
 def forward(params: GenericLM, cfg, batch: dict, *,
-            moe_impl: str = "scatter"):
+            moe_impl: str = "scatter", remat: bool = True):
     """Logits ``(B, S, vocab)`` float32 and the auxiliary loss (the MoE
     layers' load-balance losses summed, as the reference: per period,
     then over periods; 0 without MoE) for ``batch["tokens"]`` ``(B, S)``
-    (plus ``patches`` or ``frames`` for the frontends)."""
+    (plus ``patches`` or ``frames`` for the frontends).
+
+    With ``remat`` (the reference's default), gradients enabled and
+    trainable parameters, each period runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are dropped after the forward and recomputed in the
+    backward, as the reference's ``jax.checkpoint`` of its scanned
+    period.  The values are the same either way."""
     dtype = compute_dtype(cfg)
     x, positions, kw = _context(params, cfg, batch, dtype)
-    flags = _moe_flags(cfg)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    auxs = [zero] * cfg.n_periods
-    for i, p, j, kind in _layers(cfg):
-        x, a = block_forward(params.layers[i], cfg, kind, flags[j], x,
-                             positions, moe_impl=moe_impl, dtype=dtype, **kw)
-        if a is not None:
-            auxs[p] = auxs[p] + a
+    remat = remat and torch.is_grad_enabled() and any(
+        p.requires_grad for p in params.parameters())
+    auxs = []
+    for p in range(cfg.n_periods):
+        body = functools.partial(_period, params, cfg, p, positions, kw,
+                                 moe_impl, dtype)
+        if remat:
+            x, a = checkpoint(body, x, use_reentrant=False)
+        else:
+            x, a = body(x)
+        auxs.append(a)
     x = apply_norm(params, "norm_f", x, cfg.norm)
     return (unembed(params, x, cfg.tie_embeddings, dtype),
             torch.stack(auxs).sum())
+
+
+def loss_fn(params: GenericLM, cfg, batch: dict, *, aux_weight: float = 0.01,
+            moe_impl: str = "scatter", remat: bool = True):
+    """The mean next-token negative log-likelihood over ``batch["labels"]``
+    ``(B, S)`` (labels < 0 masked out; a vision model's labels padded
+    with -1 over its patch positions), from a float32 ``log_softmax``,
+    plus ``aux_weight`` times the auxiliary loss.  Returns ``(loss,
+    {"lm_loss", "aux_loss"})``, as the reference's."""
+    logits, aux = forward(params, cfg, batch, moe_impl=moe_impl,
+                          remat=remat)
+    labels = _on(params, batch["labels"])
+    if logits.shape[1] != labels.shape[1]:      # vlm: patch positions
+        labels = F.pad(labels, (logits.shape[1] - labels.shape[1], 0),
+                       value=-1)
+    mask = (labels >= 0).to(torch.float32)
+    safe = labels.clamp_min(0)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return loss + aux_weight * aux, {"lm_loss": loss, "aux_loss": aux}
 
 
 def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0, *,

@@ -41,7 +41,12 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.models.blocks, repro_torch.models.model, "
             "repro_torch.serving, repro_torch.serving.engine, "
             "repro_torch.launch.serve, repro_torch.launch.mesh, "
-            "repro_torch.dist, repro_torch.core.pipeline\n"
+            "repro_torch.dist, repro_torch.core.pipeline, "
+            "repro_torch.training, repro_torch.training.optim, "
+            "repro_torch.training.train, repro_torch.data, "
+            "repro_torch.data.tokens, repro_torch.ckpt, "
+            "repro_torch.ckpt.checkpoint, repro_torch.ft, "
+            "repro_torch.ft.manager, repro_torch.launch.train\n"
             "print('\\n'.join(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
@@ -76,7 +81,8 @@ def test_default_device_is_the_card():
     from repro_torch.configs import ARCHS
     from repro_torch.convert import lm_params_from_reference
     from repro_torch.core.pipeline import sharded_reconstruct
-    from repro_torch.launch import serve
+    from repro_torch.data import TokenDataset
+    from repro_torch.launch import serve, train
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import init_cache, init_model
     from repro_torch.tune import autotune, sweep_strategies
@@ -97,6 +103,8 @@ def test_default_device_is_the_card():
                  lambda: lm_params_from_reference({}, cfg),
                  lambda: serve.main(["--requests", "1"]),
                  lambda: make_local_mesh(1, 1),
+                 lambda: train.main(["--reduced", "--steps", "1"]),
+                 lambda: TokenDataset(8, 4, 1).batch(0),
                  lambda: sharded_reconstruct(x, mats, G, None)):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
@@ -170,8 +178,11 @@ def test_strip_launcher_refuses_what_the_kernels_do_not_take():
 
 
 def test_lm_launchers_refuse_host_tensors():
-    from repro_torch.kernels.gather import launch_onehot_gather
-    from repro_torch.kernels.slstm import launch_slstm
+    from repro_torch.kernels.gather import (launch_onehot_gather,
+                                            launch_onehot_gather_grad)
+    from repro_torch.kernels.slstm import (launch_slstm,
+                                           launch_slstm_backward,
+                                           launch_slstm_train)
 
     with pytest.raises(ValueError, match="CUDA"):
         launch_onehot_gather(torch.zeros(4, 8), torch.zeros(3,
@@ -188,3 +199,20 @@ def test_lm_launchers_refuse_host_tensors():
     with pytest.raises(TypeError, match="float32"):
         launch_slstm(torch.zeros(1, 2, 4, 8, dtype=torch.float64),
                      torch.zeros(4, 8), torch.zeros(4, 1, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        launch_slstm_train(torch.zeros(1, 2, 4, 8), torch.zeros(4, 8),
+                           torch.zeros(4, 1, 8))
+    z = torch.zeros(1, 2, 4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        launch_slstm_backward(z, torch.zeros(4, 8), torch.zeros(4, 1, 8),
+                              torch.zeros(1, 2, 8), torch.zeros(1, 2, 3, 8),
+                              torch.zeros(1, 2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        launch_onehot_gather_grad(torch.zeros(3, dtype=torch.long),
+                                  torch.zeros(3, 8), 4)
+    with pytest.raises(TypeError, match="int64"):
+        launch_onehot_gather_grad(torch.zeros(3, dtype=torch.int32),
+                                  torch.zeros(3, 8), 4)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        launch_onehot_gather_grad(torch.zeros(3, dtype=torch.long),
+                                  torch.zeros(3, 8, dtype=torch.float64), 4)

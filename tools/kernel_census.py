@@ -318,9 +318,12 @@ def slstm_chain(binary: pathlib.Path, lat: dict) -> dict:
     steady loop, at the latencies ``lat`` (:func:`latencies`), and the
     ns a token step it takes at the measured clock: the chain floor.  Of
     the kernel's instances (with and without the L2 prefetch), the
-    longer path."""
+    longer path.  The training instances (``slstm_train_kernel``, which
+    also store each step's state) and the backward kernels are not
+    read."""
     chain = max((h_chain(steady_loop(code), lat)
-                 for code in sass(binary).values()),
+                 for fn, code in sass(binary).items()
+                 if "slstm_kernel" in fn),
                 key=lambda c: c["cycles"])
     chain["ns_per_step"] = 1e3 * chain["cycles"] / lat["clock_mhz"]
     return chain
