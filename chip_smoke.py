@@ -93,6 +93,7 @@ _SRC = pathlib.Path(__file__).resolve().parent / "src"
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 L2_BYTES = 50 * 2**20
+SMEM_PER_SM = 228 * 1024    # shared memory an SM gives its blocks
 
 # Per-voxel float operations of the kernel: 6 for the voxel's world
 # coordinates, 37 per projection (three 3x4 rows, the reciprocal, the
@@ -239,6 +240,18 @@ TRAIN_SHAPE = (8, 64)               # the launcher's --batch, --seq
 TRAIN_SLSTM_SHAPES = ((8, 64), (4, 1), (1, 512), (8, 2048))
 TRAIN_GATHER_NS = (4, 512, 8192)
 TRAIN_FAULT = 1e-3
+# 15a also holds each backward at its edges.  Row 10b, the chunked scan
+# (W warps a block, chunks of T tokens): S = T - 1, T, T + 1, W T, W T +
+# 1 at B = 1, each within SLSTM_TOL and the same bits twice.  Row 9b, at
+# (V, D, N, ids): no ids, one id, one run of 512, every id out of range,
+# N at the one-block limit and one over (torch.sort's path), V off a
+# multiple of 32, D itemsize off a multiple of 16: bitwise the plain
+# version, twice, through the path the launcher names.
+TRAIN_GATHER_EDGES = (("n0", 300, 64, 0), ("n1", 300, 64, 1),
+                      ("one_run", 1000, 768, 512), ("all_out", 100, 64, 64),
+                      ("at_limit", 50304, 64, None),
+                      ("above_limit", 50304, 64, None),
+                      ("v_odd", 1007, 128, 300), ("d_odd", 500, 7, 200))
 # 15b: xlstm-125m through the launcher (TRAIN_STEPS, logged at 0, 10,
 # 20), through the API with onehot (TRAIN_API_STEPS, launches counted
 # per step), the preemption drill (DRILL_STEPS, preempted at
@@ -262,6 +275,14 @@ GLM_TRAIN_STEPS = 3
 # do 2, dc' 3, d max(n', 1e-6) 4, dn' 4, d ea 3, d eb 2, dz dc dn dA dB
 # 5, dm' 2, da 4, di 4, df 3, dz' 3, do' 3, the four d r sums 8, dh 7).
 SLSTM_BWD_FLOPS_PER_STEP = 27 + 59
+# What the chunked scan does beyond them, counted from its body the same
+# way (a multiply-add as two), per token and feature: phase 1 carries the
+# step through the map's four columns (map_step, 25 each) and its vector
+# (26), and phase 3 derives the step's coefficients a second time from
+# the values phase 1 stored (coefs, 29); per chunk, phase 2's hop (16
+# multiply-adds, 32).
+SLSTM_BWD_COMPOSE_FLOPS_PER_STEP = 4 * 25 + 26 + 29
+SLSTM_BWD_HOP_FLOPS = 32
 
 
 def fail(msg: str) -> None:
@@ -1837,6 +1858,30 @@ def profiled_call(fn, calls: int = 3) -> dict:
                     for e in top]}
 
 
+def launch_parts(fn, calls: int = 5) -> list:
+    """The device launches of a call of ``fn``, from ``torch.profiler``
+    recording device activity alone over ``calls`` calls: ``[(kernel,
+    ms a launch, launches a call), ...]``, the longest first (the
+    profiler may drop a call's events: the launches a call then read
+    under 1, and the ms a launch stand)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            out.append((e.key[:60], us / e.count / 1e3, e.count / calls))
+    return sorted(out, key=lambda x: -x[1])
+
+
 def serve_full(cfg, dev, phase: int, fwd_label: str, fwd_shape,
                counted_fn, want_counted: int) -> dict:
     """Phase 12a, 12b, 12e (chatglm3-6b) and 13a-c (jamba): ``cfg`` at
@@ -2732,33 +2777,64 @@ def excess(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
     return float(((got - want).abs() - tol * (1 + want.abs())).max())
 
 
-def slstm_bwd_bound(B: int, S: int, di: int):
+def slstm_bwd_bound(B: int, S: int, di: int, chunk: int):
     """Row 10b's least time for the function it computes, (zifo, r, the
     initial state, dhs) -> (d zifo, d r): per token and feature the
     gates (16 B) and dh (4 B) read and d zifo (16 B) written, the
     initial state, r and d r once; the operations (the kernel's, and the
-    B-term sums of d r) over the FP32 peak.  Also the bytes this design
-    moves beyond them: the hidden states and saved (c, n, m) it reads
-    (16 B a token and feature) and the saved state the training forward
-    writes for it (12 B)."""
+    B-term sums of d r) over the FP32 peak.  Also what this design does
+    beyond them: the bytes of the hidden states and saved (c, n, m) it
+    reads (16 B a token and feature) and of the saved state the training
+    forward writes for it (12 B), and the operations of the chunked
+    scan's composition and second pass over the coefficients (chunks of
+    ``chunk`` tokens)."""
     nbytes = B * S * di * 36 + 4 * B * di * 4 + 2 * 4 * di * 4
     flops = B * S * di * SLSTM_BWD_FLOPS_PER_STEP + B * 4 * di
     ms, by = bytes_bound(nbytes, flops)
-    return ms, by, B * S * di * (16 + 12)
+    extra_flops = B * di * (S * SLSTM_BWD_COMPOSE_FLOPS_PER_STEP
+                            + -(-S // chunk) * SLSTM_BWD_HOP_FLOPS)
+    return ms, by, B * S * di * (16 + 12), extra_flops
 
 
 def check_slstm_backward(cfg, dev) -> dict:
     """15a, row 10b against autograd through the plain recurrence."""
-    from repro_torch.kernels.slstm import (launch_slstm,
+    from repro_torch.kernels.slstm import (BWD_CHUNK, BWD_WARPS,
+                                           backward_config, launch_slstm,
                                            launch_slstm_backward,
                                            launch_slstm_train)
     from repro_torch.kernels.slstm_ref import (init_slstm_state,
                                                slstm_backward_ref)
 
     di = cfg.d_inner
+    lay = backward_config()
+    W, T = lay["warps"], lay["chunk"]
+    if (W, T) != (BWD_WARPS, BWD_CHUNK):
+        fail(f"sLSTM backward: the library is built with W={W}, T={T}, "
+             f"the launcher names {BWD_WARPS}, {BWD_CHUNK}")
+    print(f"  10b layout: W={W} warps a block, T={T} tokens a chunk, "
+          f"pieces of {W * T}; {lay['smem_bytes']} B of shared memory a "
+          f"block, {lay['blocks_per_sm']} blocks an SM "
+          f"({lay['blocks_per_sm'] * lay['smem_bytes'] / SMEM_PER_SM:.1%} "
+          f"of its {SMEM_PER_SM} B)")
     g = torch.Generator(device=dev).manual_seed(SEED + 15)
     r = torch.randn((4, di), generator=g, device=dev) / di ** 0.5
-    res = {}
+    res = {"layout": lay, "edges": {}}
+    for S in (T - 1, T, T + 1, W * T, W * T + 1):
+        zifo = torch.randn((1, S, 4, di), generator=g, device=dev)
+        dhs = torch.randn((1, S, di), generator=g, device=dev)
+        state = init_slstm_state(1, di, device=dev)
+        hs, _, states = launch_slstm_train(zifo, r, state)
+        dz, dr = launch_slstm_backward(zifo, r, state, hs, states, dhs)
+        dz2, dr2 = launch_slstm_backward(zifo, r, state, hs, states, dhs)
+        want_z, want_r = slstm_backward_ref(zifo, r, state, dhs)
+        ez, er = excess(dz, want_z, SLSTM_TOL), excess(dr, want_r, SLSTM_TOL)
+        same = torch.equal(dz, dz2) and torch.equal(dr, dr2)
+        if ez > 0 or er > 0 or not same:
+            fail(f"sLSTM backward edge B=1 S={S}: excess {ez:.3e}, {er:.3e} "
+                 f"over SLSTM_TOL; two runs equal {same}")
+        res["edges"][S] = {"excess_dzifo": ez, "excess_dr": er}
+    print(f"  10b edges B=1, S = {', '.join(map(str, res['edges']))}: "
+          f"within {SLSTM_TOL}, two runs equal")
     for B, S in TRAIN_SLSTM_SHAPES:
         zifo = torch.randn((B, S, 4, di), generator=g, device=dev)
         dhs = torch.randn((B, S, di), generator=g, device=dev)
@@ -2794,11 +2870,13 @@ def check_slstm_backward(cfg, dev) -> dict:
                  f"plain gradient off by 1 + {TRAIN_FAULT} (d zifo "
                  f"{fz:.3e}, d r {fr:.3e})")
         inner = 20 if S <= 64 else 3
-        ms = device_ms(lambda: launch_slstm_backward(zifo, r, state, hs,
-                                                     states, dhs), inner)
+        call = lambda: launch_slstm_backward(zifo, r, state, hs,  # noqa: E731
+                                             states, dhs)
+        ms = device_ms(call, inner)
+        parts = launch_parts(call)
         fwd_ms = device_ms(lambda: launch_slstm_train(zifo, r, state), inner)
         served_ms = device_ms(lambda: launch_slstm(zifo, r, state), inner)
-        bms, by, extra = slstm_bwd_bound(B, S, di)
+        bms, by, extra, extra_ops = slstm_bwd_bound(B, S, di, T)
         err_z = float(((dz - want_z).abs() / (1 + want_z.abs())).max())
         err_r = float(((dr - want_r).abs() / (1 + want_r.abs())).max())
         print(f"  10b B={B} S={S}: d zifo {err_z:.3e}, d r {err_r:.3e} "
@@ -2806,16 +2884,23 @@ def check_slstm_backward(cfg, dev) -> dict:
               f"{ms:.5f} ms per launch on the device (bound {bms:.5f}, "
               f"{by}; the design's extra {extra / 1e6:.1f} MB read here "
               f"and written by the training forward, "
-              f"{1e3 * extra / PEAK_BYTES_S:.5f} ms at the HBM rate); "
-              f"training forward {fwd_ms:.5f} ms, served forward "
+              f"{1e3 * extra / PEAK_BYTES_S:.5f} ms at the HBM rate, and "
+              f"{extra_ops / 1e9:.3f} GFLOP of composition and second "
+              f"pass, {1e3 * extra_ops / PEAK_FP32_FLOPS:.5f} ms "
+              f"at the FP32 peak); parts "
+              + ", ".join(f"{k} {t * 1e3:.2f} us x{c:g}" for k, t, c in parts)
+              + f"; training forward {fwd_ms:.5f} ms, served forward "
               f"{served_ms:.5f}; plain {plain:.1f} ms")
         res[(B, S)] = {"err_dzifo": err_z, "err_dr": err_r,
                        "fault_excess_dzifo": fz, "fault_excess_dr": fr,
-                       "ms": ms, "train_forward_ms": fwd_ms,
+                       "ms": ms, "parts": parts, "train_forward_ms": fwd_ms,
                        "served_forward_ms": served_ms, "plain_ms": plain,
                        "bound_ms": bms, "bound_by": by,
                        "design_extra_bytes": extra,
-                       "design_extra_ms": 1e3 * extra / PEAK_BYTES_S}
+                       "design_extra_ms": 1e3 * extra / PEAK_BYTES_S,
+                       "design_extra_flops": extra_ops,
+                       "design_extra_ops_ms":
+                           1e3 * extra_ops / PEAK_FP32_FLOPS}
         del zifo, dhs, hs, states, dz, dz2, want_z
     return res
 
@@ -2830,11 +2915,42 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 def check_gather_backward(tables, dev) -> dict:
     """15a, row 9b at each (V, D) of ``tables``, bf16 and f32, at N in
     TRAIN_GATHER_NS with a run of repeated ids and ids -1 and V."""
-    from repro_torch.kernels.gather import launch_onehot_gather_grad
+    from repro_torch.kernels.gather import (BLOCK_MAX_N, GRAD_PATHS,
+                                            grad_path,
+                                            launch_onehot_gather_grad)
     from repro_torch.kernels.gather_ref import gather_grad_ref
 
     g = torch.Generator(device=dev).manual_seed(SEED + 16)
-    res = {}
+    res = {"edges": {}}
+    for case, V, D, N in TRAIN_GATHER_EDGES:
+        N = {"at_limit": BLOCK_MAX_N, "above_limit": BLOCK_MAX_N + 1}.get(
+            case, N)
+        ids = torch.randint(0, V, (N,), generator=g, device=dev)
+        if case == "one_run":
+            ids[:] = V // 3
+        elif case == "all_out":
+            ids = torch.where(torch.arange(N, device=dev) % 2 == 0, -1 - ids,
+                              V + ids)
+        elif N >= 8:
+            ids[0], ids[1] = -1, V
+            ids[2:6] = ids[6]
+        path = grad_path(N, V)
+        for dtype in (torch.bfloat16, torch.float32):
+            dout = torch.randn((N, D), generator=g, device=dev).to(dtype)
+            before = dict(GRAD_PATHS)
+            got = launch_onehot_gather_grad(ids, dout, V)
+            again = launch_onehot_gather_grad(ids, dout, V)
+            torch.cuda.synchronize()
+            took = {k: GRAD_PATHS[k] - before[k] for k in GRAD_PATHS}
+            if took[path] != 2 or not torch.equal(got, again) or \
+                    not torch.equal(got, gather_grad_ref(ids, dout, V)):
+                fail(f"gather backward edge {case} V={V} D={D} N={N} "
+                     f"{dtype}: paths {took} (want {path}), not the plain "
+                     f"version's bits twice")
+        res["edges"][case] = {"V": V, "D": D, "N": N, "path": path}
+    print("  9b edges, bitwise the plain version in bf16 and f32, twice: "
+          + ", ".join(f"{c} (V={e['V']} D={e['D']} N={e['N']}, "
+                      f"{e['path']})" for c, e in res["edges"].items()))
     for V, D in tables:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
@@ -2870,8 +2986,10 @@ def check_gather_backward(tables, dev) -> dict:
                          f"{torch.equal(got, again)}")
                 del exact, wrong, again, got
                 clamped = ids.clamp(0, V - 1)
-                ms = device_ms(lambda: launch_onehot_gather_grad(
-                    ids, dout, V), 5 if N > 512 or D > 1024 else 20)
+                call = lambda: launch_onehot_gather_grad(  # noqa: E731
+                    ids, dout, V)
+                ms = device_ms(call, 5 if N > 512 or D > 1024 else 20)
+                parts = launch_parts(call)
                 lib = device_ms(lambda: torch.ops.aten.embedding_dense_backward(
                     dout, clamped, V, -1, False),
                     5 if N > 512 or D > 1024 else 20)
@@ -2882,11 +3000,15 @@ def check_gather_backward(tables, dev) -> dict:
                 print(f"  9b {name} V={V} D={D} N={N}: "
                       f"{'max|d| ' + str(err) if dtype == torch.float32 else f'{err:.3f} ulp'}"
                       f" vs the ordered float32 sum (bitwise the plain "
-                      f"version: {bitwise}); {ms:.5f} ms per launch on the "
-                      f"device (bound {bms:.5f}, {by}); plain {plain:.3f} "
-                      f"ms; F.embedding's gradient {lib:.5f} ms")
+                      f"version: {bitwise}); {grad_path(N, V)} path, "
+                      f"{ms:.5f} ms per launch on the device (bound "
+                      f"{bms:.5f}, {by}; parts "
+                      + ", ".join(f"{k} {t * 1e3:.2f} us x{c:g}" for k, t, c in parts)
+                      + f"); plain {plain:.3f} ms; F.embedding's gradient "
+                      f"{lib:.5f} ms")
                 res[(V, name, N)] = {"err": err, "bitwise_plain": bitwise,
-                                     "ms": ms, "plain_ms": plain,
+                                     "path": grad_path(N, V), "ms": ms,
+                                     "parts": parts, "plain_ms": plain,
                                      "library_ms": lib, "bound_ms": bms,
                                      "bound_by": by}
                 del dout
@@ -2971,6 +3093,7 @@ def train_api(cfg, dev) -> dict:
     after the run are the path's launches."""
     from repro_torch.data import TokenDataset
     from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.gather import GRAD_PATHS
     from repro_torch.models import init_model
     from repro_torch.training import (AdamWConfig, init_opt_state,
                                       make_train_step)
@@ -2988,6 +3111,7 @@ def train_api(cfg, dev) -> dict:
     batches = [ds.batch(i) for i in range(TRAIN_API_STEPS)]
     torch.cuda.reset_peak_memory_stats(dev)
     zero_launches()
+    paths = dict(GRAD_PATHS)
     times, losses, counts = [], [], []
     for b in batches:
         before = dict(LAUNCHES)
@@ -2998,7 +3122,11 @@ def train_api(cfg, dev) -> dict:
         losses.append(float(m["loss"]))
         counts.append({k: LAUNCHES[k] - before[k] for k in per_step})
     launches = dict(LAUNCHES)
+    paths = {k: GRAD_PATHS[k] - paths[k] for k in GRAD_PATHS}
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if paths != {"block": TRAIN_API_STEPS, "sort": 0}:
+        fail(f"API training: row 9b took the paths {paths}, not the "
+             f"one-block path at every step")
     bad = [i for i, c in enumerate(counts) if c != per_step]
     if bad or not losses[-1] < losses[0] or not np.isfinite(losses).all():
         fail(f"API training: launches per step {counts[bad[0]] if bad else per_step} "
@@ -3013,6 +3141,7 @@ def train_api(cfg, dev) -> dict:
     del model, opt
     torch.cuda.empty_cache()
     return {"launches": launches, "per_step": per_step,
+            "gather_grad_paths": paths,
             "losses": losses, "step_s": times, "median_s": med,
             "update_s": update_s, "median_update_s": upd,
             "tokens_per_s": B * S / med, "peak_gib": peak}
@@ -3251,23 +3380,29 @@ def run_train(cfg, glm_cfg, dev, card: str) -> list:
           "derivative_of": "src/repro/models/ssm.py:317",
           "launches": api["launches"]["slstm_backward"],
           "max_abs_err": max(max(v["err_dzifo"], v["err_dr"])
-                             for v in bwd.values()),
+                             for key, v in bwd.items()
+                             if key not in ("layout", "edges")),
           "ms": main10["ms"], "plain_ms": main10["plain_ms"],
           "bound_ms": main10["bound_ms"], "bound_by": main10["bound_by"],
           "library_ms": None,
-          "by_shape": {f"B={b}/S={s_}": v for (b, s_), v in bwd.items()}},
+          "layout": bwd["layout"],
+          "by_shape": {f"B={key[0]}/S={key[1]}": v
+                       for key, v in bwd.items()
+                       if key not in ("layout", "edges")}},
          {"name": "onehot_gather_backward", "route": "cuda",
           "source": src + "gather.cu",
           "replaces": "src/repro/kernels/gather.py:36",
           "derivative_of": "src/repro/core/gather_ops.py:52",
           "launches": api["launches"]["onehot_gather_backward"],
-          "max_abs_err": max(v["err"] for (_, d, _), v in gbwd.items()
-                             if d == "float32"),
+          "paths": api["gather_grad_paths"],
+          "max_abs_err": max(v["err"] for key, v in gbwd.items()
+                             if key != "edges" and key[1] == "float32"),
           "ms": main9["ms"], "plain_ms": main9["plain_ms"],
           "bound_ms": main9["bound_ms"], "bound_by": main9["bound_by"],
           "library_ms": main9["library_ms"],
-          "by_case": {f"V={v}/{d}/N={n}": r
-                      for (v, d, n), r in gbwd.items()}}]
+          "edges": gbwd["edges"],
+          "by_case": {f"V={key[0]}/{key[1]}/N={key[2]}": r
+                      for key, r in gbwd.items() if key != "edges"}}]
     print(json.dumps({"train_detail": {
         "card": card, "phase_s": phase_s,
         "launcher_xlstm": launcher, "api_onehot": api, "drill": drill,

@@ -12,6 +12,9 @@ version is :func:`repro_torch.kernels.gather_ref.gather_ref`.
 :func:`launch_onehot_gather_grad` runs the backward kernel (row 9b, key
 ``"onehot_gather_backward"``), ``d table = onehot(ids)^T d out``; its
 plain version is :func:`repro_torch.kernels.gather_ref.gather_grad_ref`.
+:func:`grad_path` is the launcher's choice between the one-block sort
+and ``torch.sort`` followed by the row search and walk; each
+launch counts the path it took in :data:`GRAD_PATHS`.
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ import torch
 from . import _build
 from .backproject import LAUNCHES
 
-__all__ = ["launch_onehot_gather", "launch_onehot_gather_grad"]
+__all__ = ["BLOCK_MAX_N", "BLOCK_MAX_V", "GRAD_PATHS", "KEY_POS_BITS",
+           "grad_path", "grad_scratch_ints", "launch_onehot_gather",
+           "launch_onehot_gather_grad"]
 
 _ENTRIES = {torch.float32: "onehot_gather_f32_launch",
             torch.bfloat16: "onehot_gather_bf16_launch"}
@@ -36,15 +41,45 @@ _GRAD_ENTRIES = {torch.float32: "onehot_gather_grad_f32_launch",
                  torch.bfloat16: "onehot_gather_grad_bf16_launch"}
 _GRAD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_BLOCK_ENTRIES = {torch.float32: "onehot_gather_grad_block_f32_launch",
+                  torch.bfloat16: "onehot_gather_grad_block_bf16_launch"}
+_BLOCK_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+# The one-block path packs an id and its position into one 32-bit key,
+# id << KEY_POS_BITS | position: it takes N <= BLOCK_MAX_N ids and a
+# vocabulary of at most BLOCK_MAX_V rows (the largest id then packs
+# below 0xffffffff, the key of an id out of range).
+KEY_POS_BITS = 14
+BLOCK_MAX_N = 1 << KEY_POS_BITS
+BLOCK_MAX_V = (1 << (32 - KEY_POS_BITS)) - 1
+GRAD_PATHS = {"block": 0, "sort": 0}
 
 
-def _lib(dtype: torch.dtype, grad: bool = False):
-    entry = (_GRAD_ENTRIES if grad else _ENTRIES)[dtype]
-    fn = getattr(_build.load("gather"), entry)
+def _lib(dtype: torch.dtype, kind: str = "forward"):
+    entries, argtypes = {"forward": (_ENTRIES, _ARGTYPES),
+                         "sort": (_GRAD_ENTRIES, _GRAD_ARGTYPES),
+                         "block": (_BLOCK_ENTRIES, _BLOCK_ARGTYPES)}[kind]
+    fn = getattr(_build.load("gather"), entries[dtype])
     if fn.argtypes is None:
-        fn.argtypes = _GRAD_ARGTYPES if grad else _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def grad_path(N: int, V: int) -> str:
+    """The backward's path for ``N`` ids into ``V`` rows: ``"block"`` (one
+    block sorts the packed keys; no library sort, no search over V) where
+    the key holds both, else ``"sort"`` (``torch.sort``, then a search
+    per row and the row walk)."""
+    return "block" if N <= BLOCK_MAX_N and V <= BLOCK_MAX_V else "sort"
+
+
+def grad_scratch_ints(N: int, V: int) -> int:
+    """int32 scratch of the one-block path: the hit map (``ceil(V /
+    32)``), each run's first sorted index (N + 1), the positions in
+    sorted order (N), each run's row (N) and the count of runs (1)."""
+    return (V + 31) // 32 + 3 * N + 2
 
 
 def launch_onehot_gather(table: torch.Tensor,
@@ -92,8 +127,10 @@ def launch_onehot_gather_grad(ids: torch.Tensor, dout: torch.Tensor,
     ``v``, rounded once to ``dout``'s dtype; zero where no id is ``v``;
     ids outside ``[0, V)`` add nothing.  ``ids``: ``(N,)`` int64;
     ``dout``: ``(N, D)`` float32 or bfloat16; both contiguous on one CUDA
-    device.  The ids are sorted here (``torch.sort``, stable) to group
-    each row's positions; the kernel does the rest."""
+    device.  Up to :data:`BLOCK_MAX_N` ids one block sorts them and a row
+    writer writes the table; above, the ids are sorted here
+    (``torch.sort``, stable) and the search and walk kernels do the rest
+    (:func:`grad_path`)."""
     if dout.dtype not in _GRAD_ENTRIES:
         raise TypeError(f"dout is {dout.dtype}; the kernel takes float32 "
                         f"or bfloat16")
@@ -113,18 +150,28 @@ def launch_onehot_gather_grad(ids: torch.Tensor, dout: torch.Tensor,
     dtable = torch.empty((V, D), dtype=dout.dtype, device=dout.device)
     if V == 0 or D == 0:
         return dtable
-    sorted_ids, perm = torch.sort(ids, stable=True)
-    starts = torch.empty((V + 1,), dtype=torch.int64, device=dout.device)
     vec16 = (D * dout.element_size() % 16 == 0
              and dout.data_ptr() % 16 == 0 and dtable.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(dout.device).cuda_stream
+    path = grad_path(N, V)
     with torch.cuda.device(dout.device):
-        rc = _lib(dout.dtype, grad=True)(
-            sorted_ids.data_ptr(), perm.data_ptr(), dout.data_ptr(),
-            starts.data_ptr(), dtable.data_ptr(), N, V, D, int(vec16),
-            stream)
+        if path == "block":
+            scratch = torch.empty((grad_scratch_ints(N, V),),
+                                  dtype=torch.int32, device=dout.device)
+            rc = _lib(dout.dtype, "block")(
+                ids.data_ptr(), dout.data_ptr(), scratch.data_ptr(),
+                dtable.data_ptr(), N, V, D, int(vec16), stream)
+        else:
+            sorted_ids, perm = torch.sort(ids, stable=True)
+            starts = torch.empty((V + 1,), dtype=torch.int64,
+                                 device=dout.device)
+            rc = _lib(dout.dtype, "sort")(
+                sorted_ids.data_ptr(), perm.data_ptr(), dout.data_ptr(),
+                starts.data_ptr(), dtable.data_ptr(), N, V, D, int(vec16),
+                stream)
     if rc != 0:
         raise RuntimeError(f"onehot_gather backward kernel launch failed: "
                            f"CUDA error {rc}")
+    GRAD_PATHS[path] += 1
     LAUNCHES["onehot_gather_backward"] += 1
     return dtable

@@ -12,7 +12,11 @@ For training, :func:`launch_slstm_train` runs the same recurrence and
 also keeps each step's state (also counted under ``"slstm"``), and
 :func:`launch_slstm_backward` runs the backward kernel (row 10b, key
 ``"slstm_backward"``), whose plain version is
-:func:`repro_torch.kernels.slstm_ref.slstm_backward_ref`.
+:func:`repro_torch.kernels.slstm_ref.slstm_backward_ref`.  The backward
+is a block-local chunked scan (``csrc/slstm.cu``): a block of
+:data:`BWD_WARPS` warps owns 32 chains, each warp a chunk of
+:data:`BWD_CHUNK` tokens of each piece; :func:`backward_config` reads
+its layout from the built library.
 """
 
 from __future__ import annotations
@@ -24,11 +28,34 @@ import torch
 from . import _build
 from .backproject import LAUNCHES
 
-__all__ = ["launch_slstm", "launch_slstm_backward", "launch_slstm_train"]
+__all__ = ["BWD_CHUNK", "BWD_WARPS", "backward_config", "launch_slstm",
+           "launch_slstm_backward", "launch_slstm_train"]
 
 # The C entry points and their pointer counts before (B, S, di, stream).
 _ENTRIES = {"slstm_launch": 5, "slstm_train_launch": 6,
             "slstm_backward_launch": 9}
+
+
+# The backward's chunked scan, as csrc/slstm.cu builds it (SLSTM_BWD_W
+# warps a block, each a chunk of SLSTM_BWD_T tokens of a piece).
+BWD_WARPS = 8
+BWD_CHUNK = 6
+
+
+def backward_config() -> dict:
+    """The backward kernel's layout on the current CUDA device, from the
+    built library: warps a block, tokens a chunk, shared bytes a block
+    and the blocks an SM holds."""
+    fn = _build.load("slstm").slstm_backward_config
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    rc = fn(ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"slstm backward config failed: CUDA error {rc}")
+    return {"warps": out[0], "chunk": out[1], "smem_bytes": out[2],
+            "blocks_per_sm": out[3]}
 
 
 def _lib(entry: str = "slstm_launch"):

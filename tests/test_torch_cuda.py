@@ -29,6 +29,7 @@ from repro_torch.core.phantom import forward_project
 from _row1_cases import hard_rows, odd_problem
 from repro_torch.kernels import LAUNCHES, backproject_batch
 from repro_torch.kernels.backproject_ref import backproject_batch_ref
+from repro_torch.kernels.slstm import BWD_CHUNK, BWD_WARPS
 from repro_torch.quant import quantize_rows, quantize_rows_ref
 from repro_torch.streaming import ProjectionChunk, ReconstructionEngine
 
@@ -975,6 +976,102 @@ def test_gather_backward_kernel_equals_plain(dev, dtype, V, D, n):
     hit = torch.zeros(V, dtype=torch.bool, device=dev)
     hit[ids[(ids >= 0) & (ids < V)]] = True
     assert not got[~hit].any()
+
+
+def _gather_edge(case, V, dev):
+    """(ids, D) of a row 9b edge case."""
+    from repro_torch.kernels.gather import BLOCK_MAX_N
+
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    n, D = {"n0": (0, 64), "n1": (1, 64), "one_run": (512, 768),
+            "all_out": (64, 64), "at_limit": (BLOCK_MAX_N, 64),
+            "above_limit": (BLOCK_MAX_N + 1, 64), "v_odd": (300, 128),
+            "d_odd": (200, 7)}[case]
+    ids = torch.randint(0, V, (n,), generator=g, device=dev)
+    if case == "one_run":
+        ids[:] = V // 3
+    elif case == "all_out":
+        ids = torch.where(torch.arange(n, device=dev) % 2 == 0, -1 - ids,
+                          V + ids)
+    elif n >= 8:
+        ids[0], ids[1] = -1, V
+        ids[2:6] = ids[6]
+    return ids, D
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,V", [("n0", 300), ("n1", 300),
+                                    ("one_run", 1000), ("all_out", 100),
+                                    ("at_limit", 50304),
+                                    ("above_limit", 50304),
+                                    ("v_odd", 1000 + 7), ("d_odd", 500)])
+def test_gather_backward_edges(dev, dtype, case, V):
+    """Row 9b at its edges: no ids, one id, every id equal (one run of
+    N), every id out of range, N at the one-block limit and one above it
+    (torch.sort's path), V not a multiple of 32 (the hit map's tail) and
+    D itemsize not a multiple of 16 (element stores).  Each equals the
+    plain version (the float32 sum in position order, rounded once)
+    bitwise, twice, through the path ``grad_path`` names."""
+    from repro_torch.kernels.gather import (GRAD_PATHS, grad_path,
+                                            launch_onehot_gather_grad)
+    from repro_torch.kernels.gather_ref import gather_grad_ref
+
+    ids, D = _gather_edge(case, V, dev)
+    g = torch.Generator(device=dev).manual_seed(V + D)
+    dout = torch.randn((ids.numel(), D), generator=g, device=dev).to(dtype)
+    path = grad_path(ids.numel(), V)
+    assert path == ("sort" if case == "above_limit" else "block")
+    before = dict(GRAD_PATHS)
+    got = launch_onehot_gather_grad(ids, dout, V)
+    again = launch_onehot_gather_grad(ids, dout, V)
+    torch.cuda.synchronize()
+    assert GRAD_PATHS[path] == before[path] + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, gather_grad_ref(ids, dout, V))
+
+
+@pytest.mark.parametrize("B,S,di,shift", [
+    (1, BWD_CHUNK - 1, 96, 0.0), (1, BWD_CHUNK, 96, 0.0),
+    (1, BWD_CHUNK + 1, 96, 0.0), (1, BWD_WARPS * BWD_CHUNK, 96, 0.0),
+    (1, BWD_WARPS * BWD_CHUNK + 1, 96, 0.0),
+    (2, BWD_WARPS * BWD_CHUNK + 1, 40, 0.0), (2, 2048, 64, 12.0)])
+def test_slstm_backward_piece_edges(dev, B, S, di, shift):
+    """Row 10b at the chunked scan's edges: S one short of a chunk, a
+    chunk, one over, a piece and one over, at B = 1; 40 features (a
+    block's 32 chains straddle two batch rows); a long memory (forget
+    pre-activations +12 over 2048 tokens).  Within 2e-4 of autograd
+    through the plain recurrence, and the same bits twice."""
+    from repro_torch.kernels.slstm import (launch_slstm_backward,
+                                           launch_slstm_train)
+    from repro_torch.kernels.slstm_ref import (init_slstm_state,
+                                               slstm_backward_ref)
+
+    g = torch.Generator(device=dev).manual_seed(B * 1000 + S + di)
+    zifo = torch.randn((B, S, 4, di), generator=g, device=dev)
+    zifo[:, :, 2] += shift
+    r = torch.randn((4, di), generator=g, device=dev) / di ** 0.5
+    state = init_slstm_state(B, di, device=dev)
+    dhs = torch.randn((B, S, di), generator=g, device=dev)
+    hs, _, states = launch_slstm_train(zifo, r, state)
+    dz, dr = launch_slstm_backward(zifo, r, state, hs, states, dhs)
+    again = launch_slstm_backward(zifo, r, state, hs, states, dhs)
+    torch.cuda.synchronize()
+    assert torch.equal(dz, again[0]) and torch.equal(dr, again[1])
+    want_z, want_r = slstm_backward_ref(zifo, r, state, dhs)
+    torch.testing.assert_close(dz, want_z, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(dr, want_r, rtol=2e-4, atol=2e-4)
+
+
+def test_slstm_backward_layout(dev):
+    """The built backward's layout is the one its launcher module names,
+    and its shared memory lets an SM hold at least two blocks."""
+    from repro_torch.kernels.slstm import backward_config
+
+    cfg = backward_config()
+    assert (cfg["warps"], cfg["chunk"]) == (BWD_WARPS, BWD_CHUNK)
+    assert cfg["smem_bytes"] == (BWD_WARPS * BWD_CHUNK * 9 + BWD_WARPS * 20) \
+        * 32 * 4
+    assert cfg["blocks_per_sm"] >= 2
 
 
 def test_train_step_on_the_card_matches_the_cpu(dev):

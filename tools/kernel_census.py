@@ -1,5 +1,6 @@
-"""Count and time the port's row-1 back projection, row encoder and sLSTM
-recurrence, and hold them against an older checkout's, on one CUDA card.
+"""Count and time the port's row-1 back projection, row encoder, sLSTM
+recurrence and backward kernels, and hold them against an older
+checkout's, on one CUDA card.
 
     python3 tools/kernel_census.py [--parent DIR] [--out DIR] [--reps N]
                                    [--only NAME ...]
@@ -8,7 +9,13 @@ recurrence, and hold them against an older checkout's, on one CUDA card.
 into a directory that ``.gitignore`` lists, such as ``build/parent``);
 ``--out`` (default ``build/census``) receives the cubins, libraries,
 SASS listings and ``census.json``; ``--only`` keeps some of the sources
-``backproject``, ``quant`` and ``slstm`` (default: all three).
+``backproject``, ``quant``, ``slstm`` and ``gather`` (default: all
+four), and with them their turns (row 1 and the encoder need both of
+the first two; ``slstm`` runs the recurrence's and its backward's,
+``gather`` the gather backward's); ``--skip-forward`` leaves out the
+sLSTM forward's turns; ``--bwd-variants 8x8 4x16 ...`` adds the sLSTM
+backward built with W warps a block and chunks of T tokens to its
+turns.
 
 1. **Census.**  Compiles ``csrc/<name>.cu`` of this checkout (and of the
    parent) to a cubin with the port's ``nvcc`` flags and ``-Xptxas -v``,
@@ -18,12 +25,14 @@ SASS listings and ``census.json``; ``--only`` keeps some of the sources
    the static count of the whole body and of its fast path (from the
    loop's head to its back branch: the fewest calls, then the most
    unpredicated global loads, then the longest; see :func:`fast_path`),
-   and writes the listings to ``--out``.  For the sLSTM kernel each
-   loop's counts are also given per token step (the loop's ``STG``
-   count: one ``h`` store a token), with the dependent path from one
-   step's ``h`` to the next (:func:`h_chain`, a def-use walk over the
-   SASS: its operations, the SFU ones among them, and its cycles at the
-   latencies below).
+   and writes the listings to ``--out``.  For the sLSTM kernels each
+   loop's counts are also given per token step (from the loop's ``STG``
+   count: one ``h`` store a token in the served recurrence, four stores
+   in the training forward and in the backward, whose ``d zifo`` stores
+   come last in its piece loop), and for the served recurrence the
+   dependent path from one step's ``h`` to the next (:func:`h_chain`, a
+   def-use walk over the SASS: its operations, the SFU ones among them,
+   and its cycles at the latencies below).
 2. **Latencies** (on a card).  ``tools/latency_probe.cu`` times chains of
    dependent FFMA, FADD, MUFU.EX2, MUFU.RCP (less an FADD) and MUFU.LG2
    (less an EX2) with ``clock64`` in one warp, and the SM clock against
@@ -40,6 +49,18 @@ SASS listings and ``census.json``; ``--only`` keeps some of the sources
    gates rewritten before each (as the gate projection leaves them), each
    output held to the plain version at rtol = atol = 2e-4.  Prints one
    JSON line with the times.
+4. **Backward turns** (on a card).  The sLSTM backward (row 10b) at di =
+   1536 and the training path's (B, S) = (8, 64), (4, 1), (1, 512), (8,
+   2048), from the states the training forward saves, each tree's
+   ``slstm_backward_launch`` in turns, held to autograd through the
+   plain recurrence at rtol = atol = 2e-4 and run twice for the same
+   bits.  The gather backward (row 9b) at xlstm-125m's and chatglm3-6b's
+   tables, bf16 and f32, N = 4, 512 and 8192, each tree through the
+   path its own launcher takes (the one-block sort where the tree has
+   it, else ``torch.sort`` and the two kernels), in turns, with
+   ``aten.embedding_dense_backward`` timed beside it, held bitwise to
+   the plain version and to each other.  Each backward's device
+   launches (name, µs) come from ``torch.profiler`` around one call.
 
 Needs ``nvcc`` and ``cuobjdump`` (``CUDA_HOME`` or ``PATH``); imports no
 JAX.  Without a card it stops after the census.
@@ -61,7 +82,7 @@ sys.path.insert(0, str(_ROOT / "src"))
 
 from repro_torch.kernels import _build  # noqa: E402
 
-SOURCES = ("backproject", "quant", "slstm")
+SOURCES = ("backproject", "quant", "slstm", "gather")
 CLASSES = ("fp32", "int", "lds", "ldg", "store", "conv_mufu", "control",
            "other")
 _FP32 = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK",
@@ -223,6 +244,17 @@ def _short(fn: str) -> str:
         else name
 
 
+def _stores_per_step(fn: str) -> int:
+    """Global stores a token step of the sLSTM kernel ``fn``: the served
+    recurrence stores h, the training forward h and the saved (c, n, m),
+    the backward d zifo; 0 for the others."""
+    for key, n in (("slstm_backward_kernel", 4), ("slstm_train_kernel", 4),
+                   ("slstm_kernel", 1)):
+        if key in fn:
+            return n
+    return 0
+
+
 _REG = re.compile(r"(?<![\w.])(U?[RP]\d+)\b")
 _NO_DEST = ("ST", "STG", "STS", "STL", "RED", "BRA", "JMP", "EXIT", "BAR",
             "NOP", "YIELD", "DEPBAR", "WARPSYNC", "BSSY", "BSYNC", "CALL",
@@ -345,15 +377,20 @@ def census(tree: pathlib.Path, label: str, outdir: pathlib.Path,
                 path = fast_path(code, head, tail)
                 lp = {"head": hex(head), "tail": hex(tail),
                       "body": counts(body), "fast_path": counts(path)}
-                steps = sum(_opcode(s).startswith("STG") for _, s in body)
-                if name == "slstm" and steps:
-                    # One h store a token: counts per token step.
+                per = _stores_per_step(fn) if name == "slstm" else 0
+                steps = sum(_opcode(s).startswith("STG")
+                            for _, s in body) // max(per, 1)
+                if per and steps:
+                    # Counts per token step, from the loop's stores.
                     lp["steps"] = steps
+                    lp["body_per_step"] = {
+                        c: v / steps for c, v in lp["body"].items()}
                     lp["fast_path_per_step"] = {
                         c: v / steps for c, v in lp["fast_path"].items()}
-                    lp["h_chain"] = h_chain(body)
-                    if lat is not None:
-                        lp["h_chain_cycles"] = h_chain(body, lat)
+                    if per == 1:
+                        lp["h_chain"] = h_chain(body)
+                        if lat is not None:
+                            lp["h_chain_cycles"] = h_chain(body, lat)
                 entry["loops"].append(lp)
                 listing.append(f"// loop {hex(head)}..{hex(tail)}")
                 listing += [f"/*{a:04x}*/ {s}" for a, s in body]
@@ -368,26 +405,41 @@ def census(tree: pathlib.Path, label: str, outdir: pathlib.Path,
                 if "steps" in lp:
                     per = {c: round(v, 3)
                            for c, v in lp["fast_path_per_step"].items()}
-                    print(f"      {lp['steps']} token steps; per step {per}"
-                          f"; h -> h path {lp['h_chain']}")
+                    body = {c: round(v, 3)
+                            for c, v in lp["body_per_step"].items()}
+                    print(f"      {lp['steps']} token steps; per step: "
+                          f"body {body}, fast path {per}")
+                if "h_chain" in lp:
+                    print(f"      h -> h path {lp['h_chain']}")
                     if "h_chain_cycles" in lp:
                         print(f"      h -> h path of most cycles "
                               f"{lp['h_chain_cycles']}")
     return rec
 
 
-def _shared_lib(src: pathlib.Path, so: pathlib.Path) -> ctypes.CDLL:
-    res = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
-                          str(so), str(src)], capture_output=True, text=True)
+def _shared_lib(src: pathlib.Path, so: pathlib.Path,
+                flags=()) -> ctypes.CDLL:
+    res = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, *flags,
+                          "-o", str(so), str(src)], capture_output=True,
+                         text=True)
     if res.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}"
                            f"{res.stderr}")
     return ctypes.CDLL(str(so))
 
 
-def _load(tree: pathlib.Path, name: str, outdir: pathlib.Path, label: str):
-    src = tree / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
-    return _shared_lib(src, outdir / f"{label}_lib{name}.so")
+_LIBS: dict = {}
+
+
+def _load(tree: pathlib.Path, name: str, outdir: pathlib.Path, label: str,
+          flags=()):
+    """``csrc/<name>.cu`` of ``tree`` built (with the extra nvcc
+    ``flags``) and loaded once per label."""
+    if (label, name) not in _LIBS:
+        src = tree / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
+        _LIBS[label, name] = _shared_lib(
+            src, outdir / f"{label}_lib{name}.so", flags)
+    return _LIBS[label, name]
 
 
 def latencies(outdir: pathlib.Path) -> dict:
@@ -546,6 +598,241 @@ def slstm_turns(trees: dict, outdir: pathlib.Path, reps: int) -> dict:
     return rec
 
 
+SLSTM_BWD_SHAPES = ((8, 64), (4, 1), (1, 512), (8, 2048))   # (B, S)
+GATHER_TABLES = ((50304, 768), (65024, 4096))   # xlstm-125m, chatglm3-6b
+GATHER_NS = (4, 512, 8192)
+
+
+def launch_parts(fn, calls: int = 3) -> list:
+    """The device launches of one call of ``fn``, from ``torch.profiler``
+    over ``calls`` calls: ``[(kernel name, µs a launch, launches a
+    call), ...]``, the longest first.  (The profiler may drop a call's
+    events: the launches a call then read under 1.)"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            out.append((e.key[:90], us / max(e.count, 1), e.count / calls))
+    return sorted(out, key=lambda x: -x[1])
+
+
+def _rel_err(got, want) -> float:
+    return float(((got - want).abs() / (1 + want.abs())).max())
+
+
+def slstm_bwd_turns(trees: dict, outdir: pathlib.Path, reps: int,
+                    variants=()) -> dict:
+    """Each tree's sLSTM backward at SLSTM_DI and SLSTM_BWD_SHAPES, from a
+    fresh state and the states this checkout's training forward saves, in
+    turns: device ms per launch (both kernels), each launch's parts, and
+    the largest |d| / (1 + |ref|) of d zifo and d r against autograd
+    through the plain recurrence, which must stay within SLSTM_TOL; two
+    runs must give the same bits.  ``variants`` (``"WxT"``) add this
+    checkout's kernel built with W warps a block and chunks of T tokens
+    (``-DSLSTM_BWD_W``, ``-DSLSTM_BWD_T``), labelled ``wWxT``."""
+    import torch
+
+    from repro_torch.kernels.slstm import launch_slstm_train
+    from repro_torch.kernels.slstm_ref import (init_slstm_state,
+                                               slstm_backward_ref)
+
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    builds = {label: (tree, ()) for label, tree in trees.items()}
+    for v in variants:
+        W, T = v.split("x")
+        builds[f"w{v}"] = (_ROOT, (f"-DSLSTM_BWD_W={W}",
+                                   f"-DSLSTM_BWD_T={T}"))
+    fns = {}
+    for label, (tree, flags) in builds.items():
+        fn = _load(tree, "slstm", outdir, label, flags).slstm_backward_launch
+        fn.argtypes, fn.restype = [P_] * 9 + [I_] * 3 + [P_], I_
+        fns[label] = fn
+    labels = list(builds)
+    order = labels + labels[::-1]
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    di = SLSTM_DI
+    g = torch.Generator(device=dev).manual_seed(15)
+    r = torch.randn((4, di), generator=g, device=dev) / di ** 0.5
+    rec = {}
+    for B, S in SLSTM_BWD_SHAPES:
+        zifo = torch.randn((B, S, 4, di), generator=g, device=dev)
+        dhs = torch.randn((B, S, di), generator=g, device=dev)
+        state = init_slstm_state(B, di, device=dev)
+        hs, _, states = launch_slstm_train(zifo, r, state)
+        dz = torch.empty_like(zifo)
+        part = torch.empty((B, 4, di), device=dev)
+        dr = torch.empty((4, di), device=dev)
+
+        def launch(label):
+            rc = fns[label](zifo.data_ptr(), r.data_ptr(), state.data_ptr(),
+                            hs.data_ptr(), states.data_ptr(), dhs.data_ptr(),
+                            dz.data_ptr(), part.data_ptr(), dr.data_ptr(),
+                            B, S, di, stream)
+            if rc:
+                raise RuntimeError(f"{label} slstm backward launch failed: "
+                                   f"{rc}")
+
+        want_z, want_r = slstm_backward_ref(zifo, r, state, dhs)
+        err = {}
+        for label in labels:
+            launch(label)
+            torch.cuda.synchronize()
+            first = (dz.clone(), dr.clone())
+            launch(label)
+            torch.cuda.synchronize()
+            if not (torch.equal(first[0], dz) and torch.equal(first[1], dr)):
+                raise RuntimeError(f"{label} slstm backward B={B} S={S}: two "
+                                   f"runs differ")
+            err[label] = max(_rel_err(dz, want_z), _rel_err(dr, want_r))
+            if not err[label] <= SLSTM_TOL:
+                raise RuntimeError(f"{label} slstm backward B={B} S={S}: "
+                                   f"error {err[label]:.3e} over "
+                                   f"{SLSTM_TOL}")
+            del first
+        inner = 20 if S <= 64 else 3
+        t = [device_ms(lambda lb=lb: launch(lb), inner, reps) for lb in order]
+        parts = {lb: launch_parts(lambda lb=lb: launch(lb)) for lb in labels}
+        key = f"B={B}/S={S}"
+        names = [f"{lb}{i}" for i, lb in enumerate(order)]
+        rec[key] = {"ms": dict(zip(names, t)), "err": err, "parts": parts}
+        print(f"slstm backward {key}: " + ", ".join(
+            f"{lb} {ms:.5f}" for lb, ms in zip(order, t)) + " ms; error "
+            + ", ".join(f"{lb} {e:.2e}" for lb, e in err.items())
+            + "; parts " + "; ".join(
+                f"{lb} " + ", ".join(f"{k} {us:.2f} us x{n:g}"
+                                     for k, us, n in ps)
+                for lb, ps in parts.items()), flush=True)
+        del zifo, dhs, hs, states, dz, want_z
+    return rec
+
+
+def _gather_grad_launcher(lib):
+    """The gather backward of one tree's library as that tree's launcher
+    runs it, ``(ids, dout, V) -> d table``: the one-block sort where the
+    library has it and :func:`repro_torch.kernels.gather.grad_path`
+    chooses it, else ``torch.sort`` and the two kernels."""
+    import torch
+
+    P_, I_, L_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    sort, block = {}, {}
+    for dt, n in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        fn = getattr(lib, f"onehot_gather_grad_{n}_launch")
+        fn.argtypes, fn.restype = [P_] * 5 + [L_] * 2 + [I_, I_, P_], I_
+        sort[dt] = fn
+        if hasattr(lib, f"onehot_gather_grad_block_{n}_launch"):
+            fn = getattr(lib, f"onehot_gather_grad_block_{n}_launch")
+            fn.argtypes, fn.restype = [P_] * 4 + [L_] * 2 + [I_, I_, P_], I_
+            block[dt] = fn
+
+    def launch(ids, dout, V):
+        N, D = dout.shape
+        dtable = torch.empty((V, D), dtype=dout.dtype, device=dout.device)
+        vec16 = int(D * dout.element_size() % 16 == 0
+                    and dout.data_ptr() % 16 == 0
+                    and dtable.data_ptr() % 16 == 0)
+        stream = torch.cuda.current_stream(dout.device).cuda_stream
+        if block:
+            from repro_torch.kernels.gather import (grad_path,
+                                                    grad_scratch_ints)
+        if block and grad_path(N, V) == "block":
+            scratch = torch.empty((grad_scratch_ints(N, V),),
+                                  dtype=torch.int32, device=dout.device)
+            rc = block[dout.dtype](ids.data_ptr(), dout.data_ptr(),
+                                   scratch.data_ptr(), dtable.data_ptr(), N,
+                                   V, D, vec16, stream)
+        else:
+            sorted_ids, perm = torch.sort(ids, stable=True)
+            starts = torch.empty((V + 1,), dtype=torch.int64,
+                                 device=dout.device)
+            rc = sort[dout.dtype](sorted_ids.data_ptr(), perm.data_ptr(),
+                                  dout.data_ptr(), starts.data_ptr(),
+                                  dtable.data_ptr(), N, V, D, vec16, stream)
+        if rc:
+            raise RuntimeError(f"gather backward launch failed: {rc}")
+        return dtable
+
+    return launch
+
+
+def gather_grad_turns(trees: dict, outdir: pathlib.Path, reps: int) -> dict:
+    """Each tree's gather backward at GATHER_TABLES, bf16 and f32, N in
+    GATHER_NS (a run of repeated ids, ids -1 and V), in turns: device ms
+    per call (the whole path, the sort included), each call's device
+    launches, ``aten.embedding_dense_backward`` on the same gradient;
+    each tree's result equal to the plain version bitwise, twice."""
+    import torch
+
+    from repro_torch.kernels.gather_ref import gather_grad_ref
+
+    launchers = {label: _gather_grad_launcher(_load(tree, "gather", outdir,
+                                                    label))
+                 for label, tree in trees.items()}
+    labels = list(trees)
+    order = labels + labels[::-1]
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(16)
+    rec = {}
+    for V, D in GATHER_TABLES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for N in GATHER_NS:
+                ids = torch.randint(0, V, (N,), generator=g, device=dev)
+                ids[0], ids[1] = -1, V
+                if N >= 8:
+                    ids[2:6] = ids[6]
+                dout = torch.randn((N, D), generator=g, device=dev).to(dtype)
+                want = gather_grad_ref(ids, dout, V)
+                for label in labels:
+                    a = launchers[label](ids, dout, V)
+                    b = launchers[label](ids, dout, V)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(a, want) and torch.equal(a, b)):
+                        raise RuntimeError(
+                            f"{label} gather backward V={V} {dtype} N={N}: "
+                            f"not the plain version's bits twice")
+                    del a, b
+                del want
+                inner = 5 if N > 512 or D > 1024 else 20
+
+                def run(lb):
+                    launchers[lb](ids, dout, V)
+
+                t = [device_ms(lambda lb=lb: run(lb), inner, reps)
+                     for lb in order]
+                clamped = ids.clamp(0, V - 1)
+                lib_ms = device_ms(
+                    lambda: torch.ops.aten.embedding_dense_backward(
+                        dout, clamped, V, -1, False), inner, reps)
+                parts = {lb: launch_parts(lambda lb=lb: run(lb))
+                         for lb in labels}
+                key = f"V={V}/D={D}/{str(dtype).split('.')[-1]}/N={N}"
+                names = [f"{lb}{i}" for i, lb in enumerate(order)]
+                rec[key] = {"ms": dict(zip(names, t)), "library_ms": lib_ms,
+                            "parts": parts}
+                print(f"gather backward {key}: " + ", ".join(
+                    f"{lb} {ms:.5f}" for lb, ms in zip(order, t))
+                    + f" ms; embedding_dense_backward {lib_ms:.5f} ms; "
+                    + "parts " + "; ".join(
+                        f"{lb} " + ", ".join(f"{k} {us:.2f} us x{n:g}"
+                                             for k, us, n in ps)
+                        for lb, ps in parts.items()), flush=True)
+                del dout
+            torch.cuda.empty_cache()
+    return rec
+
+
 def turns(trees: dict, outdir: pathlib.Path, reps: int) -> dict:
     import numpy as np
     import torch
@@ -673,6 +960,9 @@ def main() -> int:
                     default=_ROOT / "build" / "census")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--only", nargs="+", choices=SOURCES, default=SOURCES)
+    ap.add_argument("--skip-forward", action="store_true")
+    ap.add_argument("--bwd-variants", nargs="*", default=[],
+                    metavar="WxT")
     args = ap.parse_args()
     args.out.mkdir(parents=True, exist_ok=True)
     trees = {"change": _ROOT}
@@ -696,7 +986,13 @@ def main() -> int:
         if {"backproject", "quant"} <= set(args.only):
             rec.update(turns(trees, args.out, args.reps))
         if "slstm" in args.only:
-            rec["slstm"] = slstm_turns(trees, args.out, args.reps)
+            if not args.skip_forward:
+                rec["slstm"] = slstm_turns(trees, args.out, args.reps)
+            rec["slstm_backward"] = slstm_bwd_turns(
+                trees, args.out, args.reps, args.bwd_variants)
+        if "gather" in args.only:
+            rec["gather_backward"] = gather_grad_turns(trees, args.out,
+                                                       args.reps)
     (args.out / "census.json").write_text(json.dumps(rec, indent=1))
     print(json.dumps({k: v for k, v in rec.items() if k != "census"}))
     return 0
