@@ -59,7 +59,14 @@ trained at full width through ``python -m repro_torch.launch.train``
 gather (rows 9, 9b, 10, 10b launched every step), a preemption drill
 that resumes bitwise, and one float32 step with the kernels against the
 same step on the plain versions; and chatglm3-6b trained at full width
-through the launcher's defaults.  Any failed check exits non-zero.  The
+through the launcher's defaults.  Last, the LM stack under a mesh
+(phase 16): the launcher on its 1x1 mesh, every loss bitwise the
+no-mesh path's; xlstm-125m on two gloo ranks (data=2, parameters and
+moments split) against one rank, rows 9, 9b, 10, 10b launched on each
+rank, the checkpoint restored on one rank bitwise; chatglm3-6b (float32)
+under flash-decoding over a sequence-split KV cache and
+qwen3-moe-235b-a22b (2 layers) under manual expert parallelism, each
+held to one rank's plain run.  Any failed check exits non-zero.  The
 last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the JSON record of
 every kernel of the path.  Needs one CUDA card; imports nothing of JAX
@@ -2431,10 +2438,11 @@ def ct_data(geom, dev):
     return projs, mats, filt
 
 
-def zero_launches() -> None:
+def zero_launches(dev=None) -> None:
     from repro_torch.kernels import LAUNCHES
 
-    torch.cuda.synchronize()
+    if dev is None or dev.type == "cuda":
+        torch.cuda.synchronize()
     for key in LAUNCHES:
         LAUNCHES[key] = 0
 
@@ -3028,16 +3036,23 @@ def parse_launcher(out: str) -> dict:
                      r"([\d.]+) s; the update median ([\d.]+) s\), "
                      r"([\d.]+) tokens/s; loss ([-\d.naif]+) at step (\d+)"
                      r"(?:; peak allocated ([\d.]+) GiB)?", out)
-    if fin is None or summ is None:
-        fail(f"the launcher's output lacks its finish or summary line:\n"
-             f"{out[-2000:]}")
+    every = re.search(r"^losses (\{.*\})$", out, re.M)
+    coll = re.search(r"; ([\d.]+) collectives a step", out)
+    mesh = re.search(r"mesh=(\{[^}]*\})", out)
+    if fin is None or summ is None or every is None or coll is None:
+        fail(f"the launcher's output lacks its finish, summary or losses "
+             f"line:\n{out[-2000:]}")
     return {"losses": losses, "finished_at": int(fin.group(1)),
             "restarts": int(fin.group(2)), "median_s": float(summ.group(2)),
             "first_s": float(summ.group(3)),
             "median_update_s": float(summ.group(4)),
             "tokens_per_s": float(summ.group(5)),
             "last_loss": float(summ.group(6)),
-            "peak_gib": (float(summ.group(8)) if summ.group(8) else None)}
+            "peak_gib": (float(summ.group(8)) if summ.group(8) else None),
+            "all_losses": {int(k): v for k, v in
+                           json.loads(every.group(1)).items()},
+            "collectives": float(coll.group(1)),
+            "mesh": mesh.group(1) if mesh else None}
 
 
 def run_launcher(args: list, timeout: float) -> tuple[dict, float]:
@@ -3409,7 +3424,569 @@ def run_train(cfg, glm_cfg, dev, card: str) -> list:
         "train_step_check": check, "glm_reckoning": reck,
         "glm": dict(glm, wall_s=glm_wall)}}))
     return k, {"onehot_gather": api["launches"]["onehot_gather"],
-               "slstm": api["launches"]["slstm"]}
+               "slstm": api["launches"]["slstm"]}, launcher
+
+
+# ----------------------------------------------------------------------
+# The LM stack under a mesh (phase 16)
+# ----------------------------------------------------------------------
+
+# Multi-rank parts run as gloo ranks on the one card (NCCL refuses two
+# ranks on one device), as phase 14d does.
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 300
+MESH_TRAIN_STEPS = 5                # 16b, at TRAIN_SHAPE
+# 16b against one rank: step 0's loss and gradient norm, then each later
+# loss (local batches of 4 change the GEMMs' shapes and bf16 rounding),
+# or twice the gap of the same steps on one rank in two microbatches of
+# 4 rows (accum_steps=2) where that is larger: in bf16 the warm-up's
+# Adam steps amplify any rounding (PR 24's first card run: 1.35e-2 and
+# 2.40e-2 at steps 3 and 4, 6e-8 at step 0).
+MESH_TRAIN_RTOL = (2e-3, 1e-2)
+DECODE_SP_SHAPE = (4, 1024, 64, 8)  # 16c: B, max_len, prompt, decode steps
+# x max(1, max|ref|): tests/test_decode_sp.py's bounds, for its "bf16"
+# cache (the compute dtype's) and the int8 one.
+DECODE_SP_TOL = {"bf16": 2e-3, "int8": 2e-2}
+EP_ARCH, EP_DEPTH, EP_SHAPE = "qwen3-moe-235b-a22b", 2, (2, 128)
+EP_TOL = 1e-4                       # x max(1, max|ref|): test_moe_ep's
+
+
+def mesh_cfg(meta: dict):
+    """A phase's model config from its ``meta.json``: the named
+    architecture, cut by ``reduced`` (CPU rehearsals), with overrides."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[meta["arch"]]
+    if meta.get("reduced"):
+        cfg = dataclasses.replace(cfg.reduced(), vocab=meta["vocab"])
+    return dataclasses.replace(cfg, **meta["over"])
+
+
+def mesh_meta(cfg, base: dict) -> dict:
+    """The ``meta.json`` from which a rank rebuilds ``cfg``: its
+    architecture and the fields that differ from the registry's."""
+    meta = dict(base, arch=cfg.name, over={})
+    ref = mesh_cfg(meta)
+    meta["over"] = {f.name: getattr(cfg, f.name)
+                    for f in dataclasses.fields(cfg)
+                    if getattr(cfg, f.name) != getattr(ref, f.name)}
+    return meta
+
+
+def state_leaves(model, opt) -> dict:
+    """The training state's leaves by name: parameters, moments (an int8
+    moment's codes and scales), step."""
+    out = {f"p/{n}": p for n, p in model.named_parameters()}
+    for k in ("m", "v"):
+        for n, e in opt[k].items():
+            for part, t in (e.items() if isinstance(e, dict)
+                            else (("", e),)):
+                out[f"{k}/{n}/{part}".rstrip("/")] = t
+    out["step"] = opt["step"]
+    return out
+
+
+def digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    raw = t.detach().reshape(-1).contiguous().cpu().view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+
+
+def rank_train(rank: int, d: pathlib.Path, dev, meta: dict) -> dict:
+    """16b on one rank: MESH_TRAIN_STEPS steps on the data=MESH_RANKS
+    mesh, the launches of rows 9, 9b, 10, 10b, the bytes held, then a
+    checkpoint and each leaf's block digest."""
+    from repro_torch.ckpt import save_checkpoint
+    from repro_torch.dist import fsdp, place_params
+    from repro_torch.dist.sharding import ShardingRules, sharding_context
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import init_model, param_specs
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+
+    cfg = mesh_cfg(meta)
+    mesh = make_local_mesh(MESH_RANKS, 1, device=dev)
+    rules = ShardingRules(batch=("pod", "data"), fsdp=("data",))
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=10,
+                       total_steps=MESH_TRAIN_STEPS)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                np.load(d / f"batch{i}.npz").items()}
+               for i in range(MESH_TRAIN_STEPS)]
+    model = init_model(cfg, seed=SEED, device=dev).requires_grad_(True)
+    with sharding_context(mesh, rules):
+        place_params(model, param_specs(cfg), mesh, rules)
+        opt = init_opt_state(model, ocfg)
+        step = make_train_step(cfg, ocfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        zero_launches(dev)
+        before = dict(fsdp.COUNTS)
+        losses, gnorms, times = [], [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            model, opt, m = step(model, opt, b)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            times.append(time.perf_counter() - t0)
+        launches = dict(LAUNCHES)
+        coll = {k: (v - before[k]) / MESH_TRAIN_STEPS
+                for k, v in fsdp.COUNTS.items()}
+        leaves = state_leaves(model, opt)
+        held = {k: sum(fsdp.local(t).numel() * t.element_size()
+                       for n, t in leaves.items() if n.startswith(k))
+                for k in ("p/", "m/", "v/")}
+        full = {k: sum(t.numel() * t.element_size()
+                       for n, t in leaves.items() if n.startswith(k))
+                for k in ("p/", "m/", "v/")}
+        save_checkpoint(str(d / "ck"), MESH_TRAIN_STEPS, {"params": model,
+                                                         "opt": opt})
+        coord = mesh.get_coordinate()
+        blocks = {n: {"sha": digest(fsdp.local(t)),
+                      "shards": [[mesh.size(i), pl.dim, coord[i]]
+                                 for i, pl in enumerate(getattr(
+                                     t, "placements", ()))
+                                 if pl.is_shard() and mesh.size(i) > 1]}
+                  for n, t in leaves.items()}
+    return {"ok": True, "losses": losses, "grad_norms": gnorms,
+            "step_s": times, "launches": launches,
+            "collectives_per_step": coll, "held_bytes": held,
+            "full_bytes": full, "blocks": blocks}
+
+
+def rank_decode(rank: int, d: pathlib.Path, dev, meta: dict) -> dict:
+    """16c on one rank: the prefill and decode steps under flash-decoding
+    on the (1, MESH_RANKS) mesh, held to the one-rank logits, for each KV
+    cache dtype."""
+    from repro_torch.dist.sharding import ShardingRules, sharding_context
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import decode_step, init_model, prefill
+
+    B, T, P, n = meta["decode"]
+    mesh = make_local_mesh(1, MESH_RANKS, device=dev)
+    rules = ShardingRules(batch=("data",), fsdp=(), tp=("model",),
+                          sp=("model",), flash_decode=True)
+    toks = torch.from_numpy(np.load(d / "tokens.npy")).to(dev)
+    model = init_model(mesh_cfg(meta), seed=SEED, device=dev)
+    out = {}
+    zero_launches(dev)
+    with torch.no_grad(), sharding_context(mesh, rules):
+        for kv in DECODE_SP_TOL:
+            cfg = dataclasses.replace(mesh_cfg(meta), kv_cache_dtype=kv)
+            ref = np.load(d / f"logits_{kv}.npy")
+            lg, cache = prefill(model, cfg, {"tokens": toks[:, :P]}, T)
+            errs = [float((lg[:, 0].float().cpu()
+                           - torch.from_numpy(ref[0])).abs().max())]
+            ms = []
+            for i in range(n):
+                sync(dev)
+                t0 = time.perf_counter()
+                lg, cache = decode_step(model, cfg, cache,
+                                        toks[:, P + i:P + i + 1], P + i)
+                sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                errs.append(float((lg[:, 0].float().cpu() - torch.from_numpy(
+                    ref[i + 1])).abs().max()))
+            scale = max(1.0, float(np.abs(ref).max()))
+            nbytes = sum(v.numel() * v.element_size()
+                         for c in cache["blocks"].values()
+                         for v in c.values())
+            out[kv] = {"max_abs_err": max(errs), "errs": errs,
+                       "scale": scale, "bound": DECODE_SP_TOL[kv] * scale,
+                       "decode_ms": ms, "cache_bytes": nbytes,
+                       "cache_shape": list(cache["blocks"]["b0"]["k"].shape)}
+    ok = all(r["max_abs_err"] <= r["bound"] for r in out.values())
+    return {"ok": ok, "by_kv": out, "launches": dict(LAUNCHES)}
+
+
+def rank_ep(rank: int, d: pathlib.Path, dev, meta: dict) -> dict:
+    """16d on one rank: the model placed with its experts split over the
+    (1, MESH_RANKS) mesh's ``model`` axis, one forward with
+    ``moe_impl="ep"``, held to the one-rank scatter logits."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import place_params
+    from repro_torch.dist.sharding import ShardingRules, sharding_context
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import forward, init_model, param_specs
+
+    cfg = mesh_cfg(meta)
+    mesh = make_local_mesh(1, MESH_RANKS, device=dev)
+    rules = ShardingRules(batch=("data",), fsdp=(), tp=(), ep=("model",))
+    toks = torch.from_numpy(np.load(d / "tokens.npy")).to(dev)
+    # One rank at a time holds the full draw before it keeps its block.
+    for r in range(MESH_RANKS):
+        if r == rank:
+            model = init_model(cfg, seed=SEED, device=dev)
+            place_params(model, param_specs(cfg), mesh, rules)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    experts = [p for n, p in model.named_parameters()
+               if n.endswith(("w_gate", "w_up", "w_down"))]
+    held = sum(p.to_local().numel() * p.element_size() for p in experts)
+    total = sum(p.numel() * p.element_size() for p in experts)
+    own = experts[0].to_local().shape[0]
+    ref = torch.from_numpy(np.load(d / "logits.npy"))
+    with torch.no_grad(), sharding_context(mesh, rules):
+        sync(dev)
+        t0 = time.perf_counter()
+        lg, _ = forward(model, cfg, {"tokens": toks}, moe_impl="ep",
+                        remat=False)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    err = float((lg.float().cpu() - ref).abs().max())
+    bound = EP_TOL * max(1.0, float(ref.abs().max()))
+    return {"ok": err <= bound and own == cfg.n_experts // MESH_RANKS,
+            "max_abs_err": err, "bound": bound, "own_experts": own,
+            "expert_bytes_held": held, "expert_bytes_full": total,
+            "forward_s": wall}
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_rank(phase: str, rank: int, tmp: str) -> int:
+    """One rank of phase 16 (``chip_smoke.py --mesh-rank PHASE RANK
+    DIR``): joins the gloo world through a FileStore in DIR, runs the
+    phase's part and writes its record to DIR."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(_SRC))
+    d = pathlib.Path(tmp)
+    meta = json.loads((d / "meta.json").read_text())
+    dev = (torch.device("cuda", 0) if meta.get("device", "cuda") == "cuda"
+           else torch.device("cpu"))
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(d / "store"), MESH_RANKS),
+        rank=rank, world_size=MESH_RANKS,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        run = {"16b": rank_train, "16c": rank_decode, "16d": rank_ep}[phase]
+        rec = run(rank, d, dev, meta)
+    finally:
+        dist.destroy_process_group()
+    (d / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0 if rec["ok"] else 1
+
+
+def mesh_ranks(phase: str, d: pathlib.Path) -> list:
+    """Run phase ``phase``'s MESH_RANKS ranks on DIR ``d``; their records.
+    A rank that fails, or outlasts MESH_TIMEOUT_S, fails the phase."""
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(MESH_RANKS):
+        with open(d / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(pathlib.Path(__file__).resolve()),
+                 "--mesh-rank", phase, str(r), str(d)], stdout=log,
+                stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, t0 + MESH_TIMEOUT_S
+                               - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    recs = []
+    for r, p in enumerate(procs):
+        out = d / f"rank{r}.json"
+        if p.returncode != 0 or not out.is_file():
+            tail = (d / f"rank{r}.log").read_text()[-3000:]
+            detail = out.read_text()[-2000:] if out.is_file() else ""
+            fail(f"{phase}: rank {r} exited {p.returncode}:\n{tail}\n"
+                 f"{detail}")
+        recs.append(json.loads(out.read_text()))
+    return recs
+
+
+def mesh_launcher(cfg, dev, launcher15b: dict) -> dict:
+    """16a: the launcher with 15b's arguments (a fresh checkpoint
+    directory) on its 1x1 mesh: each step's loss bitwise that of the same
+    steps through the API with no mesh, and of 15b's run."""
+    from repro_torch.data import TokenDataset
+    from repro_torch.models import init_model
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        res, wall = run_launcher(["--arch", cfg.name, "--steps",
+                                  str(TRAIN_STEPS), "--save-every", "5",
+                                  "--ckpt", os.path.join(tmp, "ck")],
+                                 timeout=600)
+    B, S = TRAIN_SHAPE
+    ds = TokenDataset(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                      device=str(dev))
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+    model = init_model(cfg, seed=0, device=dev).requires_grad_(True)
+    opt = init_opt_state(model, ocfg)
+    step = make_train_step(cfg, ocfg)
+    plain = []
+    for i in range(TRAIN_STEPS):
+        model, opt, m = step(model, opt, ds.batch(i))
+        plain.append(float(m["loss"]))
+    del model, opt
+    sync(dev)
+    torch.cuda.empty_cache()
+    got = [res["all_losses"][i] for i in range(TRAIN_STEPS)]
+    same = got == plain and got == [launcher15b["all_losses"][i]
+                                    for i in range(TRAIN_STEPS)]
+    if not same or res["collectives"] != 0:
+        fail(f"16a: the 1x1 mesh's losses {got} against the no-mesh "
+             f"{plain} and 15b's; {res['collectives']} collectives a step")
+    print(f"  16a: {TRAIN_STEPS} launcher steps on its 1x1 mesh, every "
+          f"loss bitwise the no-mesh API's and 15b's; median "
+          f"{res['median_s']:.4f} s a step (15b: "
+          f"{launcher15b['median_s']:.4f}), {res['collectives']:g} "
+          f"collectives a step; process {wall:.1f} s")
+    return dict(res, wall_s=wall, bitwise=same)
+
+
+def check_mesh_train(cfg, dev, tmp: pathlib.Path, meta: dict) -> dict:
+    """16b: MESH_TRAIN_STEPS steps of ``cfg`` (onehot) on MESH_RANKS gloo
+    ranks against the same steps on one rank; the launches and bytes
+    per rank; the checkpoint the ranks saved restored on one rank, each
+    rank's block of every leaf bitwise."""
+    from repro_torch.ckpt import load_checkpoint
+    from repro_torch.data import TokenDataset
+    from repro_torch.models import init_model
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+
+    B, S = TRAIN_SHAPE
+    ds = TokenDataset(cfg.vocab, S, B, device=str(dev))
+    batches = [ds.batch(i) for i in range(MESH_TRAIN_STEPS)]
+    for i, b in enumerate(batches):
+        np.savez(tmp / f"batch{i}.npz",
+                 **{k: v.cpu().numpy() for k, v in b.items()})
+    (tmp / "meta.json").write_text(json.dumps(meta))
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=10,
+                       total_steps=MESH_TRAIN_STEPS)
+    runs = {}
+    for accum in (1, 2):
+        model = init_model(cfg, seed=SEED, device=dev).requires_grad_(True)
+        opt = init_opt_state(model, ocfg)
+        step = make_train_step(cfg, ocfg, accum_steps=accum)
+        runs[accum] = []
+        for b in batches:
+            t0 = time.perf_counter()
+            model, opt, m = step(model, opt, b)
+            runs[accum].append((float(m["loss"]), float(m["grad_norm"]),
+                                time.perf_counter() - t0))
+        del model, opt
+        sync(dev)
+        torch.cuda.empty_cache()
+    one, two = runs[1], runs[2]
+    recs = mesh_ranks("16b", tmp)
+    r0 = recs[0]
+    gaps = [abs(r0["losses"][i] - one[i][0]) / abs(one[i][0])
+            for i in range(MESH_TRAIN_STEPS)]
+    micro = [abs(two[i][0] - one[i][0]) / abs(one[i][0])
+             for i in range(MESH_TRAIN_STEPS)]
+    later = [max(MESH_TRAIN_RTOL[1], 2 * g) for g in micro]
+    gn_gap = abs(r0["grad_norms"][0] - one[0][1]) / one[0][1]
+    n_slstm = sum(k == "slstm" for k in cfg.block_pattern) * cfg.n_periods
+    per_step = {"onehot_gather": 1, "onehot_gather_backward": 1,
+                "slstm": 2 * n_slstm, "slstm_backward": n_slstm}
+    bad = [i for i, r in enumerate(recs)
+           if any(r["launches"].get(k, 0) != v * MESH_TRAIN_STEPS
+                  for k, v in per_step.items())]
+    if gaps[0] > MESH_TRAIN_RTOL[0] or gn_gap > MESH_TRAIN_RTOL[0] \
+            or any(g > b for g, b in zip(gaps[1:], later[1:])) or bad \
+            or recs[1]["losses"] != r0["losses"]:
+        fail(f"16b: loss gaps {gaps} (bounds {later}; two microbatches on "
+             f"one rank: {micro}), grad-norm gap {gn_gap}, ranks with "
+             f"launches off {per_step} a step: {bad}")
+    # Restore on one rank; each rank's block of each leaf bitwise.
+    model = init_model(cfg, seed=SEED + 1, device=dev)
+    tree = {"params": model, "opt": init_opt_state(model, AdamWConfig(
+        state_dtype=ocfg.state_dtype))}
+    _, at = load_checkpoint(str(tmp / "ck"), tree, in_place=True)
+    leaves = state_leaves(tree["params"], tree["opt"])
+    mismatched = []
+    for r, rec in enumerate(recs):
+        for n, blk in rec["blocks"].items():
+            t = leaves[n]
+            for size, dim, c in blk["shards"]:
+                t = t.chunk(size, dim)[c]
+            if digest(t) != blk["sha"]:
+                mismatched.append((r, n))
+    del model, tree
+    sync(dev)
+    torch.cuda.empty_cache()
+    if at != MESH_TRAIN_STEPS or mismatched:
+        fail(f"16b: restored step {at}; blocks that differ: "
+             f"{mismatched[:5]}")
+    for i, r in enumerate(recs):
+        share = {k: r["held_bytes"][k] / r["full_bytes"][k]
+                 for k in r["held_bytes"]}
+        print(f"  16b rank {i}: losses {['%.6f' % x for x in r['losses']]}; "
+              f"median {statistics.median(r['step_s'][1:]):.4f} s a step "
+              f"(first {r['step_s'][0]:.3f}); launches "
+              f"{ {k: r['launches'][k] for k in per_step} }; "
+              f"collectives a step {r['collectives_per_step']}; holds "
+              f"{r['held_bytes']['p/'] / 2**20:.1f} of "
+              f"{r['full_bytes']['p/'] / 2**20:.1f} MiB of parameters "
+              f"({share['p/']:.3f}), moments m {share['m/']:.3f}, v "
+              f"{share['v/']:.3f}")
+    print(f"  16b one rank: losses {['%.6f' % x[0] for x in one]}, median "
+          f"{statistics.median(x[2] for x in one[1:]):.4f} s a step; gaps "
+          f"{['%.2e' % g for g in gaps]} (bounds "
+          f"{['%.2e' % b for b in [MESH_TRAIN_RTOL[0]] + later[1:]]}; one "
+          f"rank in two microbatches: {['%.2e' % g for g in micro]}), grad "
+          f"norm {gn_gap:.2e}; restored on one rank: every block of "
+          f"{len(recs[0]['blocks'])} leaves bitwise")
+    return {"ranks": [{k: v for k, v in r.items() if k != "blocks"}
+                      for r in recs],
+            "one_rank": one, "one_rank_accum2": two, "loss_gaps": gaps,
+            "accum2_gaps": micro, "bounds": later, "grad_norm_gap": gn_gap,
+            "per_step": per_step}
+
+
+def check_decode_sp(cfg, dev, tmp: pathlib.Path, meta: dict) -> dict:
+    """16c: ``cfg`` (onehot) decoded under flash-decoding on MESH_RANKS
+    gloo ranks, against one rank's plain decode of the same tokens, with
+    the bf16 and int8 caches."""
+    from repro_torch.models.model import decode_step, init_model, prefill
+
+    B, T, P, n = DECODE_SP_SHAPE
+    (tmp / "meta.json").write_text(json.dumps(dict(meta,
+                                                   decode=DECODE_SP_SHAPE)))
+    toks = seeded_ints(cfg.vocab, (B, P + n), dev, SEED + 16)
+    np.save(tmp / "tokens.npy", toks.cpu().numpy())
+    model = init_model(cfg, seed=SEED, device=dev)
+    plain_ms, cache_bytes = {}, {}
+    with torch.no_grad():
+        for kv in DECODE_SP_TOL:
+            c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+            lg, cache = prefill(model, c, {"tokens": toks[:, :P]}, T)
+            rows, ms = [lg[:, 0].float().cpu()], []
+            for i in range(n):
+                sync(dev)
+                t0 = time.perf_counter()
+                lg, cache = decode_step(model, c, cache,
+                                        toks[:, P + i:P + i + 1], P + i)
+                sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                rows.append(lg[:, 0].float().cpu())
+            np.save(tmp / f"logits_{kv}.npy", torch.stack(rows).numpy())
+            plain_ms[kv] = ms
+            cache_bytes[kv] = sum(v.numel() * v.element_size()
+                                  for leaves in cache["blocks"].values()
+                                  for v in leaves.values())
+            del cache
+    del model
+    sync(dev)
+    torch.cuda.empty_cache()
+    recs = mesh_ranks("16c", tmp)
+    for i, r in enumerate(recs):
+        for kv, v in r["by_kv"].items():
+            print(f"  16c rank {i} {kv}: max|d| {v['max_abs_err']:.3e} "
+                  f"(bound {v['bound']:.3e}); cache k {v['cache_shape']} "
+                  f"(periods, rows, positions, heads, hd), "
+                  f"{v['cache_bytes'] / 2**20:.1f} of "
+                  f"{cache_bytes[kv] / 2**20:.1f} MiB; "
+                  f"decode median {statistics.median(v['decode_ms'][1:]):.2f}"
+                  f" ms a step (one rank, plain: "
+                  f"{statistics.median(plain_ms[kv][1:]):.2f})")
+        if r["launches"].get("onehot_gather") != 2 * (n + 1):
+            fail(f"16c: rank {i} launched row 9 {r['launches']} times, "
+                 f"not {2 * (n + 1)}")
+    return {"ranks": recs, "plain_ms": plain_ms,
+            "one_rank_cache_bytes": cache_bytes}
+
+
+def check_ep(cfg, dev, tmp: pathlib.Path, meta: dict) -> dict:
+    """16d: one forward of ``cfg`` with ``moe_impl="ep"`` on MESH_RANKS
+    gloo ranks (each with its experts) against one rank's ``scatter``,
+    run before the ranks."""
+    from repro_torch.models.model import forward, init_model
+
+    (tmp / "meta.json").write_text(json.dumps(meta))
+    toks = seeded_ints(cfg.vocab, EP_SHAPE, dev, SEED + 17)
+    np.save(tmp / "tokens.npy", toks.cpu().numpy())
+    model = init_model(cfg, seed=SEED, device=dev)
+    with torch.no_grad():
+        sync(dev)
+        t0 = time.perf_counter()
+        lg, _ = forward(model, cfg, {"tokens": toks}, moe_impl="scatter",
+                        remat=False)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    np.save(tmp / "logits.npy", lg.float().cpu().numpy())
+    del model, lg
+    sync(dev)
+    torch.cuda.empty_cache()
+    recs = mesh_ranks("16d", tmp)
+    for i, r in enumerate(recs):
+        print(f"  16d rank {i}: max|d| {r['max_abs_err']:.3e} (bound "
+              f"{r['bound']:.3e}); holds {r['own_experts']} of "
+              f"{cfg.n_experts} experts, {r['expert_bytes_held'] / 1e9:.2f} "
+              f"of {r['expert_bytes_full'] / 1e9:.2f} GB; forward "
+              f"{r['forward_s']:.3f} s (one rank, scatter: {wall:.3f})")
+    return {"ranks": recs, "one_rank_forward_s": wall}
+
+
+def run_mesh(xcfg, glm_cfg, moe_cfg, dev, card: str, launcher15b: dict,
+             reduced: dict | None = None) -> dict:
+    """Phase 16 on ``xcfg`` (xlstm-125m), ``glm_cfg`` (chatglm3-6b) and
+    ``moe_cfg`` (qwen3-moe at EP_DEPTH layers); prints the details and
+    returns the ranks' launches of rows 9, 9b, 10 and 10b.  ``reduced``
+    (``{"vocab": V}``) has the ranks rebuild reduced configs (CPU
+    rehearsals)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = {"device": dev.type, **({"reduced": True, **reduced}
+                                   if reduced else {})}
+    print(f"phase 16a: {xcfg.name} through the launcher on its 1x1 mesh")
+    a = mesh_launcher(xcfg, dev, launcher15b)
+    onehot = dataclasses.replace(xcfg, gather_impl="onehot")
+    print(f"phase 16b: {xcfg.name} (onehot) on {MESH_RANKS} gloo ranks, "
+          f"data={MESH_RANKS}, {MESH_TRAIN_STEPS} steps of "
+          f"{TRAIN_SHAPE[0]} x {TRAIN_SHAPE[1]}")
+    # float32, as tests/test_decode_sp.py runs the reference: in bfloat16
+    # the logits are bf16 values, whose ulp at max|ref| is above the bound.
+    glm = dataclasses.replace(glm_cfg, gather_impl="onehot",
+                              param_dtype="float32")
+    moe = dataclasses.replace(moe_cfg, param_dtype="float32",
+                              capacity_factor=moe_cfg.n_experts
+                              / moe_cfg.top_k)
+    with tempfile.TemporaryDirectory() as t1, \
+            tempfile.TemporaryDirectory() as t2, \
+            tempfile.TemporaryDirectory() as t3:
+        b = check_mesh_train(onehot, dev, pathlib.Path(t1),
+                             mesh_meta(onehot, base))
+        print(f"phase 16c: {glm.name} (float32) decoded under "
+              f"flash-decoding on a "
+              f"(1, {MESH_RANKS}) mesh, B={DECODE_SP_SHAPE[0]}, max_len="
+              f"{DECODE_SP_SHAPE[1]}, a {DECODE_SP_SHAPE[2]}-token prefill "
+              f"and {DECODE_SP_SHAPE[3]} steps, bf16 and int8 caches")
+        c = check_decode_sp(glm, dev, pathlib.Path(t2), mesh_meta(glm, base))
+        print(f"phase 16d: {moe.name} ({moe.n_layers} layers, float32) "
+              f"with moe_impl='ep' on a (1, {MESH_RANKS}) mesh, "
+              f"{EP_SHAPE[0]} x {EP_SHAPE[1]} tokens")
+        d = check_ep(moe, dev, pathlib.Path(t3), mesh_meta(moe, base))
+    phase_s = time.perf_counter() - t0
+    print(f"  phase 16 took {phase_s:.1f} s")
+    launches = {k: {"16b": [r["launches"][k] for r in b["ranks"]]}
+                for k in ("onehot_gather", "onehot_gather_backward",
+                          "slstm", "slstm_backward")}
+    launches["onehot_gather"]["16c"] = [r["launches"]["onehot_gather"]
+                                        for r in c["ranks"]]
+    print(json.dumps({"mesh_detail": {
+        "card": card, "phase_s": phase_s, "launcher_1x1": a,
+        "train_data2": b, "decode_sp": c, "ep": d}}))
+    return launches
 
 
 def main() -> int:
@@ -3418,6 +3995,8 @@ def main() -> int:
              "CUDA card")
     if sys.argv[1:2] == ["--shard-rank"]:
         return shard_rank(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4])
     sys.path.insert(0, str(_SRC))
     try:
         from repro_torch.core.geometry import Geometry
@@ -3446,12 +4025,18 @@ def main() -> int:
     for entry in record["kernels"]:
         if entry["name"] in sharded:
             entry["sharded_launches"] = sharded[entry["name"]]
-    train, train_launches = run_train(ARCHS[LM_ARCH], ARCHS[GLM_ARCH], dev,
-                                      card)
+    train, train_launches, launcher15b = run_train(
+        ARCHS[LM_ARCH], ARCHS[GLM_ARCH], dev, card)
     for entry in record["kernels"]:
         if entry["name"] in train_launches:
             entry["train_launches"] = train_launches[entry["name"]]
     record["kernels"] += train
+    mesh = run_mesh(ARCHS[LM_ARCH], ARCHS[GLM_ARCH],
+                    dataclasses.replace(ARCHS[EP_ARCH], n_layers=EP_DEPTH),
+                    dev, card, launcher15b)
+    for entry in record["kernels"]:
+        if entry["name"] in mesh:
+            entry["mesh_launches"] = mesh[entry["name"]]
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

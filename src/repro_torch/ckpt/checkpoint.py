@@ -14,6 +14,14 @@ with the reference's on-disk layout: one directory per step::
 * **Restore** puts each leaf on the device the caller names (by default
   the device of the matching leaf of the template), or copies it into
   the template's leaf in place.
+* **Under a mesh** (leaves placed as DTensors by
+  :func:`repro_torch.dist.place_params`), a save gathers each leaf to
+  its full value on every rank and rank 0 writes it, then a barrier:
+  the reference's layout, unsharded, whatever mesh saved it.  A restore
+  keeps each rank's block of each leaf of a placed template (its
+  placements), so state saved on one mesh restores on another or on one
+  device (elastic restore).  Rank 0 writing is the port's choice: the
+  reference's single controller writes from its one process.
 
 A tree is nested dicts whose leaves are tensors; an ``nn.Module`` in it
 stands for its named parameters.  Leaves are flattened in sorted key
@@ -31,7 +39,10 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from ..dist import fsdp
 
 __all__ = ["save_checkpoint", "load_checkpoint", "all_steps",
            "CheckpointManager"]
@@ -82,28 +93,41 @@ def _unflatten(tree, leaves: dict, prefix: str = ""):
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
-    return t.detach().to("cpu", copy=True).contiguous()
+    """A leaf's full value copied to the host (a placed leaf gathered:
+    every rank takes part)."""
+    return fsdp.full_value(t.detach()).to("cpu", copy=True).contiguous()
 
 
-def _host_tree(tree):
-    """A copy of ``tree`` on the host, modules as dicts of parameters."""
-    if torch.is_tensor(tree):
-        return _host(tree)
-    return {key: _host_tree(child) for key, child in _items(tree)}
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the world, or
+    the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier():
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def save_checkpoint(directory: str, step: int, tree, *, keep: int = 3):
     """Atomic synchronous save of ``tree`` at ``step``; returns the step's
-    directory."""
-    leaves = _flatten(tree)
+    directory.  Every rank of a world calls it; rank 0 writes."""
+    leaves = [(path, _host(leaf)) for path, leaf in _flatten(tree)]
+    if _writer():
+        _write(directory, step, leaves, keep)
+    _barrier()
+    return _step_dir(directory, step)
+
+
+def _write(directory: str, step: int, leaves: list, keep: int):
+    """Write ``[(path, host tensor)]`` as step ``step``'s checkpoint."""
     final = _step_dir(directory, step)
     tmp = final + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "treedef": [p for p, _ in leaves],
                 "n_leaves": len(leaves), "leaves": []}
-    for i, (_, leaf) in enumerate(leaves):
-        arr = _host(leaf)
+    for i, (_, arr) in enumerate(leaves):
         raw = arr.reshape(-1).view(torch.uint8).numpy()
         np.save(os.path.join(tmp, f"arr_{i:05d}.npy"), raw)
         manifest["leaves"].append(
@@ -114,7 +138,6 @@ def save_checkpoint(directory: str, step: int, tree, *, keep: int = 3):
     shutil.rmtree(final, ignore_errors=True)
     os.rename(tmp, final)
     _gc(directory, keep)
-    return final
 
 
 def _gc(directory: str, keep: int):
@@ -144,7 +167,9 @@ def load_checkpoint(directory: str, tree_like, *, step: int | None = None,
     ``tree_like`` receives its parameters' values in place.  With
     ``in_place`` every leaf of ``tree_like`` receives its values, one
     leaf at a time from the host, so that a restore holds no second copy
-    of the tree on the device.  Returns ``(tree, step)``."""
+    of the tree on the device.  A placed leaf of ``tree_like`` takes
+    this rank's block of the stored full value.  Returns ``(tree,
+    step)``."""
     if in_place and device is not None:
         raise ValueError("in_place restores onto the template's devices")
     steps = all_steps(directory)
@@ -166,15 +191,26 @@ def load_checkpoint(directory: str, tree_like, *, step: int | None = None,
         meta = manifest["leaves"][i]
         raw = torch.from_numpy(np.load(os.path.join(d, f"arr_{i:05d}.npy")))
         arr = raw.view(_DTYPES[meta["dtype"]]).reshape(meta["shape"])
+        placed = fsdp.is_placed(leaf)
+        if placed:
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"{path}: the checkpoint holds "
+                                 f"{tuple(arr.shape)}, the template "
+                                 f"{tuple(leaf.shape)}")
+            mesh, placements = leaf.device_mesh, leaf.placements
+            block = fsdp.local_block(arr, mesh, placements)
         if not in_place:
-            out[path] = arr.to(leaf.device if device is None else device)
+            dev = leaf.device if device is None else device
+            out[path] = (fsdp.like(block.contiguous().to(dev), mesh,
+                                   placements, arr.shape) if placed
+                         else arr.to(dev))
             continue
         if arr.dtype != leaf.dtype or arr.shape != leaf.shape:
             raise ValueError(f"{path}: the checkpoint holds {arr.dtype} "
                              f"{tuple(arr.shape)}, the template "
                              f"{leaf.dtype} {tuple(leaf.shape)}")
         with torch.no_grad():
-            leaf.copy_(arr)
+            fsdp.local(leaf).copy_(block if placed else arr)
         out[path] = leaf
     return _unflatten(tree_like, out), step
 
@@ -187,16 +223,20 @@ class CheckpointManager:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
+        self._pending = False
 
     def save_async(self, step: int, tree):
-        """Copy ``tree`` to the host now; write it on a daemon thread."""
+        """Copy ``tree`` to the host now (every rank: placed leaves are
+        gathered); write it on a daemon thread (rank 0)."""
         self.wait()                     # at most one write in flight
-        host_tree = _host_tree(tree)
+        leaves = [(path, _host(leaf)) for path, leaf in _flatten(tree)]
+        self._pending = True
+        if not _writer():
+            return
 
         def work():
             try:
-                save_checkpoint(self.directory, step, host_tree,
-                                keep=self.keep)
+                _write(self.directory, step, leaves, self.keep)
             except Exception as e:      # noqa: BLE001 - re-raised by wait
                 self._error = e
 
@@ -204,10 +244,14 @@ class CheckpointManager:
         self._thread.start()
 
     def wait(self):
-        """Join the write in flight; re-raise its error, if any."""
+        """Join the write in flight (then a barrier of every rank);
+        re-raise its error, if any."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

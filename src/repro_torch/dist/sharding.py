@@ -46,6 +46,7 @@ __all__ = [
     "valid_spec",
     "spec_to_placements",
     "sharding_context",
+    "current",
     "shard_constraint",
 ]
 
@@ -183,6 +184,12 @@ def sharding_context(mesh, rules: ShardingRules):
         yield
     finally:
         _CTX.reset(token)
+
+
+def current():
+    """``(mesh, rules)`` of the innermost :func:`sharding_context`, or
+    ``None`` outside one."""
+    return _CTX.get()
 
 
 # Valid logical names for annotations (flash_decode is a flag, not an

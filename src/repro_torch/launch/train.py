@@ -1,5 +1,5 @@
 """Training launcher, counterpart of ``repro/launch/train.py``: the
-fault-tolerant loop over the train step on one device, with the
+fault-tolerant loop over the train step under a device mesh, with the
 reference's flags and defaults (``--arch chatglm3-6b``, 100 steps of 8 x
 64 tokens, ``--reduced`` with a vocabulary of 256), plus ``--device``
 (the card by default):
@@ -7,27 +7,59 @@ reference's flags and defaults (``--arch chatglm3-6b``, 100 steps of 8 x
     PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
         --reduced --steps 50 --ckpt /tmp/repro_run --device cpu
 
-It prints ``arch=... (...M params)``, the loss every 10 steps and
-``finished at step N (R restarts)``, as the reference's, then the steps'
-wall time, the AdamW update's share of it, the last step's loss and, on
-the card, the peak of allocated memory.  The reference's ``--production-mesh`` trains over a device mesh, which the
-port does not yet (ROADMAP item 8b): the flag exits with a message.
+As the reference's, it trains under ``make_local_mesh()`` (every rank
+of the world on the ``data`` axis), or ``make_production_mesh()`` with
+``--production-mesh``, with ``ShardingRules(batch=("pod", "data"),
+fsdp=("data",))``: the parameters placed by ``param_specs`` under the
+sharding context, the batch split over ``data``.  A world of one is a
+1x1 mesh (NCCL on the card, gloo on the CPU), which runs the one-device
+step exactly; a larger world comes from the environment
+(:func:`repro_torch.launch.mesh.init_world`: ``torchrun``'s variables,
+or ``REPRO_TORCH_INIT_METHOD``, e.g. ``file:///path``).
+
+Rank 0 prints ``arch=... (...M params) mesh={...}``, the logical axes
+the mesh realises, the loss every 10 steps and ``finished at step N (R
+restarts)``, as the reference's, then the steps' wall time, the AdamW
+update's share of it, the last step's loss, the collectives a step and,
+on the card, the peak of allocated memory, and last every step's loss
+in full (``losses {"step": loss, ...}``).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import statistics
 
 import torch
+import torch.distributed as dist
 
-from .._device import resolve_device
 from ..configs import ARCHS
 from ..data.tokens import TokenDataset
+from ..dist import fsdp
+from ..dist.sharding import (ShardingRules, logical_to_spec,
+                             sharding_context)
 from ..ft.manager import FaultTolerantLoop, run_with_restarts
-from ..models.model import init_model
+from ..models.model import init_model, param_specs
 from ..training import AdamWConfig, init_opt_state, make_train_step
+from .mesh import init_world, make_local_mesh, make_production_mesh
+
+
+def realised(mesh, rules) -> str:
+    """Which logical axes the mesh splits, and which the port keeps
+    whole: activations over ``tp``/``sp_act`` (ROADMAP item 8c)."""
+    out = []
+    for ax in ("batch", "fsdp", "tp", "ep", "sp", "sp_act"):
+        spec = logical_to_spec((ax,), rules, mesh)[0]
+        axes = () if spec is None else (
+            spec if isinstance(spec, tuple) else (spec,))
+        if not fsdp.axis_dims(mesh, axes):
+            continue
+        note = ("parameters only; activations whole (item 8c)"
+                if ax in ("tp", "sp_act") else "split")
+        out.append(f"{ax}->{'x'.join(axes)} ({note})")
+    return ", ".join(out) or "none (one rank)"
 
 
 def main(argv=None):
@@ -44,19 +76,32 @@ def main(argv=None):
     ap.add_argument("--save-every", type=int, default=25)
     ap.add_argument("--accum-steps", type=int, default=1)
     ap.add_argument("--moe-impl", default="scatter")
-    ap.add_argument("--production-mesh", action="store_true",
-                    help="not in the port yet (ROADMAP item 8b)")
+    ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        ap.exit(2, "--production-mesh: the port trains on one device; the "
-                   "LM stack under a mesh is ROADMAP item 8b\n")
-    dev = resolve_device(args.device)
+    dev = init_world(args.device)
+    try:
+        mesh = (make_production_mesh(device=dev) if args.production_mesh
+                else make_local_mesh(device=dev))
+    except ValueError as e:
+        ap.exit(2, f"--production-mesh: {e}\n")
+    try:
+        return _train(args, dev, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, dev, mesh):
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), vocab=256)
-    print(f"arch={cfg.name} ({cfg.param_count() / 1e6:.1f}M params) "
-          f"device={dev}", flush=True)
+    rules = ShardingRules(batch=("pod", "data"), fsdp=("data",))
+    lead = dist.get_rank() == 0
+    shape = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    if lead:
+        print(f"arch={cfg.name} ({cfg.param_count() / 1e6:.1f}M params) "
+              f"mesh={shape} device={dev}", flush=True)
+        print(f"logical axes realised: {realised(mesh, rules)}", flush=True)
 
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=10,
                           total_steps=args.steps)
@@ -66,16 +111,21 @@ def main(argv=None):
     step_fn = make_train_step(cfg, opt_cfg, moe_impl=args.moe_impl,
                               remat=True, accum_steps=args.accum_steps,
                               update_times=update_s)
+    specs = param_specs(cfg)
+    collectives = []
 
     def init_fn():
         params = init_model(cfg, seed=0, device=dev).requires_grad_(True)
+        fsdp.place_params(params, specs, mesh, rules)
         return {"params": params, "opt": init_opt_state(params, opt_cfg)}
 
     def train_one(state, step):
+        before = sum(fsdp.COUNTS.values())
         p, o, metrics = step_fn(state["params"], state["opt"],
                                 ds.batch(step))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)     # the loop times whole steps
+        collectives.append(sum(fsdp.COUNTS.values()) - before)
         return {"params": p, "opt": o}, metrics
 
     loops = []
@@ -85,19 +135,23 @@ def main(argv=None):
                                        save_every=args.save_every))
         return loops[-1]
 
-    last = {}
+    last, losses = {}, {}
 
     def logged(state, i):
-        state, metrics = _logged(train_one, state, i)
+        state, metrics = _logged(train_one, state, i, lead)
         last.update(step=i, loss=float(metrics["loss"]))
+        losses[i] = last["loss"]
         return state, metrics
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    _, step, restarts = run_with_restarts(make_loop, init_fn, logged,
-                                          args.steps)
-    print(f"finished at step {step} ({restarts} restarts)")
+    with sharding_context(mesh, rules):
+        _, step, restarts = run_with_restarts(make_loop, init_fn, logged,
+                                              args.steps)
     times = [t for loop in loops for t in loop.step_times]
+    if not lead:
+        return step, restarts
+    print(f"finished at step {step} ({restarts} restarts)")
     if times:
         tokens = args.batch * args.seq
         med = statistics.median(times)
@@ -108,13 +162,16 @@ def main(argv=None):
               f"(first {times[0]:.4f} s; the update median "
               f"{statistics.median(update_s):.4f} s), {tokens / med:.1f} "
               f"tokens/s; loss {last['loss']:.4f} at step "
-              f"{last['step']}{peak}", flush=True)
+              f"{last['step']}{peak}; {statistics.median(collectives):g} "
+              f"collectives a step", flush=True)
+        print(f"losses {json.dumps({str(k): v for k, v in sorted(losses.items())})}",
+              flush=True)
     return step, restarts
 
 
-def _logged(fn, state, i):
+def _logged(fn, state, i, lead=True):
     state, metrics = fn(state, i)
-    if i % 10 == 0:
+    if lead and i % 10 == 0:
         print(f"step {i:4d} loss={float(metrics['loss']):.4f} "
               f"gnorm={float(metrics['grad_norm']):.2f}", flush=True)
     return state, metrics

@@ -25,23 +25,30 @@ Pallas kernel.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..dist import fsdp
 from .layers import Params, dense, init_dense, rope_rotate, rope_tables
 
 __all__ = ["init_attention", "attention_train", "attention_decode",
-           "attention_cross_step", "init_kv_cache"]
+           "attention_cross_step", "init_kv_cache", "sp_shards"]
 
 _NEG = -1e30
 
 
 def init_attention(p: Params, cfg, cross: bool = False):
     d, hd = cfg.d_model, cfg.hd
-    init_dense(p, "wq", d, cfg.n_heads * hd, bias=cfg.qkv_bias)
-    init_dense(p, "wk", d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias)
-    init_dense(p, "wv", d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias)
-    init_dense(p, "wo", cfg.n_heads * hd, d)
+    init_dense(p, "wq", d, cfg.n_heads * hd, ("fsdp", "tp"),
+               bias=cfg.qkv_bias)
+    init_dense(p, "wk", d, cfg.n_kv_heads * hd, ("fsdp", "tp"),
+               bias=cfg.qkv_bias)
+    init_dense(p, "wv", d, cfg.n_kv_heads * hd, ("fsdp", "tp"),
+               bias=cfg.qkv_bias)
+    init_dense(p, "wo", cfg.n_heads * hd, d, ("tp", "fsdp"))
 
 
 def _rope_one(t: torch.Tensor, positions, cfg) -> torch.Tensor:
@@ -208,17 +215,88 @@ def _update(buf: torch.Tensor, new: torch.Tensor, index) -> torch.Tensor:
     return out
 
 
+def sp_shards():
+    """``(mesh, sp axes, shards)`` of flash-decoding under the active
+    sharding context (``rules.flash_decode``, ``sp`` axes the mesh has,
+    in the rules' order, of more than one rank in all), else ``None``."""
+    ctx = fsdp.active()
+    if ctx is None or not ctx[1].flash_decode:
+        return None
+    mesh, rules = ctx
+    axes = tuple(a for a in rules.sp if a in mesh.mesh_dim_names)
+    n = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
+    return None if n == 1 else (mesh, axes, n)
+
+
+def _decode_attend_sp(cfg, qg, k_new, v_new, cache: dict, index, dtype):
+    """Flash-decoding over this rank's slice of the cache (module
+    docstring): ``(out (B, 1, KV, G, hd) in dtype, new cache)``, or
+    ``None`` outside such a context."""
+    sp = sp_shards()
+    if sp is None:
+        return None
+    mesh, axes, _ = sp
+    groups = [mesh.get_group(i) for i in fsdp.axis_dims(mesh, axes)]
+    B, _, KV, G, hd = qg.shape
+    T_loc = cache["k"].shape[1]
+    off = fsdp.axes_offset(mesh, axes, T_loc)
+    index = int(index)
+    li = min(max(index - off, 0), T_loc - 1)
+    mine = off <= index < off + T_loc
+
+    def upd(buf, new):
+        out = buf.clone()
+        if mine:
+            out[:, li:li + 1] = new.to(buf.dtype)
+        return out
+
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = _kv_quant(k_new)
+        vq, vs = _kv_quant(v_new)
+        nc = {"k": upd(cache["k"], kq), "v": upd(cache["v"], vq),
+              "k_s": upd(cache["k_s"], ks), "v_s": upd(cache["v_s"], vs)}
+        k = _kv_dequant(nc["k"], nc["k_s"], dtype)
+        v = _kv_dequant(nc["v"], nc["v_s"], dtype)
+    else:
+        nc = {"k": upd(cache["k"], k_new), "v": upd(cache["v"], v_new)}
+        k, v = nc["k"], nc["v"]
+    logits = torch.einsum("bskgh,btkh->bkgst", qg.float(),
+                          k.float()) * _scale(hd)
+    ki = off + torch.arange(T_loc, device=qg.device)[None, :]
+    logits = torch.where(ki <= index, logits, _NEG)
+    m = logits.amax(dim=-1)                               # (B, KV, G, 1)
+    for g in groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+    p = torch.exp(logits - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgst,btkh->bkgsh", p, v.float())
+    for g in groups:
+        dist.all_reduce(l, group=g)
+        dist.all_reduce(acc, group=g)
+    fsdp.COUNTS["all_reduce"] += 3 * len(groups)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(dtype), nc
+
+
 def attention_decode(params, cfg, x, cache: dict, index, *,
                      dtype=torch.bfloat16):
     """One-token step: write the token's keys and values at ``index``
     and attend to the cached prefix (keys past ``index`` are masked).
-    ``x``: (B, 1, d); ``index``: the position, a Python int."""
+    ``x``: (B, 1, d); ``index``: the position, a Python int.  Under
+    flash-decoding ``cache`` is this rank's slice
+    (:func:`_decode_attend_sp`)."""
     B = x.shape[0]
     positions = torch.full((B, 1), int(index), dtype=torch.int32,
                            device=x.device)
     if cfg.rope == "mrope":
         positions = positions.expand(3, B, 1)
     q, k_new, v_new = _qkv(params, cfg, x, x, positions, positions, dtype)
+    sp = _decode_attend_sp(cfg, _group(q, cfg.n_kv_heads), k_new, v_new,
+                           cache, index, dtype)
+    if sp is not None:
+        out, new_cache = sp
+        out = out.reshape(B, 1, cfg.n_heads * cfg.hd)
+        return dense(params, "wo", out, dtype), new_cache
     if cfg.kv_cache_dtype == "int8":
         kq, ks = _kv_quant(k_new)
         vq, vs = _kv_quant(v_new)

@@ -52,11 +52,11 @@ def _check(kind: str):
 def init_mlp(p: Params, cfg):
     d, ff = cfg.d_model, cfg.d_ff
     if cfg.mlp_act == "swiglu":
-        init_dense(p, "w_gate", d, ff)
-        init_dense(p, "w_up", d, ff)
+        init_dense(p, "w_gate", d, ff, ("fsdp", "tp"))
+        init_dense(p, "w_up", d, ff, ("fsdp", "tp"))
     else:
-        init_dense(p, "w_in", d, ff)
-    init_dense(p, "w_down", ff, d)
+        init_dense(p, "w_in", d, ff, ("fsdp", "tp"))
+    init_dense(p, "w_down", ff, d, ("tp", "fsdp"))
 
 
 def mlp_forward(params, cfg, x, dtype) -> torch.Tensor:

@@ -5,7 +5,10 @@ the RoPE family (standard, ``rope2d``, M-RoPE) and activations.
 Parameters live in :class:`Params` modules keyed by the reference's
 names (``ln1_scale``, ``mixer``, ``zifo``, ...), so ``params["zifo"]``
 reads as in the reference; the ``apply`` functions are plain functions
-on tensors.
+on tensors, and also take a nested dict of tensors with the same keys
+(what :mod:`repro_torch.models.model` hands them under a mesh).  Each
+parameter records the reference's logical sharding axes
+(:attr:`Params.specs`; :mod:`repro_torch.dist.sharding`).
 """
 
 from __future__ import annotations
@@ -35,7 +38,10 @@ class Params(nn.Module):
     :class:`torch.Generator`, and :meth:`sub` adds a child node.
 
     ``generator=None`` allocates the normal draws without filling them,
-    for values loaded afterwards (:mod:`repro_torch.convert`).
+    for values loaded afterwards (:mod:`repro_torch.convert`); on the
+    ``meta`` device nothing is allocated at all.  :attr:`specs` maps each
+    parameter's name to its logical axes, one per dimension, as the
+    reference's ``Param.specs`` (``"null"`` or ``None`` replicates).
     Parameters are drawn not requiring gradients, which is what serving
     wants; ``requires_grad_(True)`` on the model makes them trainable, as
     the training launcher and :func:`repro_torch.training.make_train_step`
@@ -46,14 +52,21 @@ class Params(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self._init = (dtype, device, generator)
+        self.specs: dict[str, tuple] = {}
 
     def sub(self, name: str) -> "Params":
         child = Params(*self._init)
         self.add_module(name, child)
         return child
 
-    def add(self, name: str, shape, *, scale: float | None = None,
+    def add(self, name: str, shape, logical_axes=None, *,
+            scale: float | None = None,
             init: str = "normal") -> torch.Tensor:
+        """Draw parameter ``name`` of ``shape``; ``logical_axes`` (one per
+        dimension, replicated where omitted) is recorded in
+        :attr:`specs`."""
+        self.specs[name] = (tuple(logical_axes) if logical_axes is not None
+                            else ("null",) * len(shape))
         dtype, device, generator = self._init
         if init == "zeros":
             val = torch.zeros(shape, dtype=dtype, device=device)
@@ -81,11 +94,11 @@ class Params(nn.Module):
 # Dense / norms
 # ----------------------------------------------------------------------
 
-def init_dense(p: Params, name: str, d_in: int, d_out: int,
+def init_dense(p: Params, name: str, d_in: int, d_out: int, logical_axes,
                bias: bool = False):
-    p.add(name, (d_in, d_out))
+    p.add(name, (d_in, d_out), logical_axes)
     if bias:
-        p.add(name + "_b", (d_out,), init="zeros")
+        p.add(name + "_b", (d_out,), (logical_axes[-1],), init="zeros")
 
 
 def dense(params, name: str, x: torch.Tensor,
@@ -99,9 +112,9 @@ def dense(params, name: str, x: torch.Tensor,
 
 
 def init_norm(p: Params, name: str, d: int, kind: str = "rmsnorm"):
-    p.add(name + "_scale", (d,), init="ones")
+    p.add(name + "_scale", (d,), ("null",), init="ones")
     if kind == "layernorm":
-        p.add(name + "_bias", (d,), init="zeros")
+        p.add(name + "_bias", (d,), ("null",), init="zeros")
 
 
 def apply_norm(params, name: str, x: torch.Tensor, kind: str = "rmsnorm",
@@ -129,9 +142,9 @@ def apply_norm(params, name: str, x: torch.Tensor, kind: str = "rmsnorm",
 def init_embed(p: Params, vocab: int, d: int, tie: bool):
     # 1/sqrt(d) init + sqrt(d) lookup scaling keeps both the residual
     # stream and (tied) logits at unit scale.
-    p.add("embed", (vocab, d), scale=1.0 / math.sqrt(d))
+    p.add("embed", (vocab, d), ("tp", "fsdp"), scale=1.0 / math.sqrt(d))
     if not tie:
-        p.add("unembed", (d, vocab))
+        p.add("unembed", (d, vocab), ("fsdp", "tp"))
 
 
 def embed_lookup(params, tokens: torch.Tensor, impl: str = "take",

@@ -29,9 +29,40 @@ Entry points, as the reference's:
 * :func:`init_cache`   -> decode cache
 
 MoE replaces the MLP in the pattern slots :func:`_moe_flags` names
-(``moe_impl`` chooses its dispatch, as the reference's).  The
-reference's ``dist/sharding.shard_constraint`` is the identity without
-a mesh and has no counterpart yet.
+(``moe_impl`` chooses its dispatch, as the reference's).
+
+Parameter specs and the facade, as the reference's: :func:`param_specs`
+(each parameter's logical sharding axes, from a model on the ``meta``
+device: nothing is allocated), :func:`abstract_params` (that model, the
+counterpart of ``jax.eval_shape``), :class:`Model` and
+:func:`build_model`.  A block leaf's spec is the reference's without its
+leading ``"null"``: the port keeps one module per layer, not a stack.
+
+**Under a mesh.**  Inside a :func:`repro_torch.dist.sharding_context`
+whose mesh has more than one rank, every entry point runs SPMD, data
+parallel over the ``batch`` axes with the parameters placed by
+:func:`repro_torch.dist.place_params` (ZeRO-3 over ``fsdp``):
+
+* each rank takes its block of the batch's rows (they must divide the
+  batch shards; the reference would replicate a batch that does not);
+* the top-level parameters are gathered once a call, each layer's
+  inside its period, so under remat the gathered copies are freed after
+  the period and gathered again in the backward; the model's code, and
+  the hand-written kernels, see plain full tensors only
+  (:func:`repro_torch.dist.fsdp.gather`);
+* :func:`loss_fn` divides the local sum by the all-reduced count of
+  labelled tokens, so its value is the global mean and each rank's
+  gradient its part of it; :func:`forward`, :func:`prefill` and
+  :func:`decode_step` return the full logits (every rank's rows);
+* the cache is this rank's: its batch rows and, under flash-decoding
+  (``rules.flash_decode`` with ``sp`` axes), its slice of the positions
+  (:func:`init_cache`, :func:`prefill`, :func:`shard_cache`);
+* activations are replicated over the ``tp`` and ``sp_act`` axes: the
+  reference's ``shard_constraint`` calls on activations are layout hints
+  that change no value, and the port computes those activations whole
+  on every rank of the ``model`` axis (ROADMAP item 8c splits them).
+
+A mesh of one rank runs the one-device code exactly.
 """
 
 from __future__ import annotations
@@ -45,14 +76,18 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..dist import fsdp
+from .attention import sp_shards
 from .blocks import (block_forward, block_prefill, block_step, init_block,
                      init_block_cache)
 from .layers import (DTYPES, Params, apply_norm, dense, embed_lookup,
                      init_dense, init_embed, init_norm, make_positions_mrope,
                      unembed)
+from .moe import ep_shards, gather_moe
 
 __all__ = ["FRONTEND_DIM", "GenericLM", "init_model", "forward", "loss_fn",
-           "prefill", "decode_step", "init_cache"]
+           "prefill", "decode_step", "init_cache", "shard_cache",
+           "param_specs", "abstract_params", "Model", "build_model"]
 
 # Stub modality frontends: precomputed features -> linear adapter.
 FRONTEND_DIM = {"audio": 80, "vision": 1176}
@@ -85,7 +120,7 @@ class GenericLM(Params):
         init_norm(self, "norm_f", cfg.d_model, cfg.norm)
         if cfg.frontend:
             init_dense(self, "frontend", FRONTEND_DIM[cfg.frontend],
-                       cfg.d_model)
+                       cfg.d_model, ("null", "fsdp"))
         flags = _moe_flags(cfg)
         self.layers = self._blocks(
             cfg, [(cfg.block_pattern[j], flags[j])
@@ -120,8 +155,122 @@ def init_model(cfg, *, seed: int = 0,
     return GenericLM(cfg, device=dev, generator=generator)
 
 
+def _specs_of(model: nn.Module) -> dict:
+    """``{parameter name: logical axes}`` of a model's :class:`Params`."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, Params):
+            for leaf, spec in mod.specs.items():
+                out[f"{prefix}.{leaf}" if prefix else leaf] = spec
+    return out
+
+
+def abstract_params(cfg) -> GenericLM:
+    """The model's parameters on the ``meta`` device: their names, shapes
+    and dtypes, with nothing allocated (the counterpart of the
+    reference's ``jax.eval_shape`` of its init)."""
+    return GenericLM(cfg, device=torch.device("meta"), generator=None)
+
+
+def param_specs(cfg) -> dict:
+    """``{parameter name: logical axes}`` without allocating parameters
+    (a block leaf's spec is the reference's without its leading
+    ``"null"``)."""
+    return _specs_of(abstract_params(cfg))
+
+
+class Model:
+    """Thin facade bundling (cfg, params, specs) for launchers."""
+
+    def __init__(self, cfg, params, specs):
+        self.cfg = cfg
+        self.params = params
+        self.specs = specs
+
+    def __repr__(self):
+        n = self.cfg.param_count()
+        return (f"Model({self.cfg.name}, {n / 1e6:.1f}M params, "
+                f"family={self.cfg.family})")
+
+
+def build_model(cfg, *, seed: int = 0, device="cuda") -> Model:
+    """A :class:`Model` drawn from ``seed`` on ``device``."""
+    params = init_model(cfg, seed=seed, device=device)
+    return Model(cfg, params, _specs_of(params))
+
+
 def _on(params: GenericLM, x, dtype=torch.int64) -> torch.Tensor:
     return torch.as_tensor(x, dtype=dtype, device=params.device)
+
+
+class _Gathered:
+    """A placed :class:`GenericLM` as the model's code reads it under a
+    mesh: its top-level parameters gathered at once, each layer when it
+    is read (inside its period's remat region), as nested dicts of full
+    tensors.  Under expert parallelism a MoE layer keeps its own experts
+    only, and its router's gradient is summed over the ``ep`` axes (each
+    rank's covers its experts)."""
+
+    def __init__(self, model: GenericLM, mesh, rules, ep: bool):
+        self.device = model.device
+        self._at = (mesh, rules, ep)
+        self._top = {n: fsdp.gather(p, mesh, rules)
+                     for n, p in model.named_parameters(recurse=False)}
+        self.layers = _LazyLayers(model.layers, self._full)
+        if model.cfg.enc_dec:
+            self.enc_layers = _LazyLayers(model.enc_layers, self._full)
+
+    def _full(self, module: nn.Module) -> dict:
+        mesh, rules, ep = self._at
+        out = {n: fsdp.gather(p, mesh, rules)
+               for n, p in module.named_parameters(recurse=False)}
+        for n, child in module.named_children():
+            out[n] = (gather_moe(child, mesh, rules, ep) if n == "moe"
+                      else self._full(child))
+        return out
+
+    def __getitem__(self, name: str):
+        return self._top[name]
+
+    def get(self, name: str, default=None):
+        return self._top.get(name, default)
+
+
+class _LazyLayers:
+    def __init__(self, layers: nn.ModuleList, full):
+        self._layers, self._full = layers, full
+
+    def __getitem__(self, i: int) -> dict:
+        return self._full(self._layers[i])
+
+    def __iter__(self):
+        return (self._full(m) for m in self._layers)
+
+
+def _read(params: GenericLM, cfg, moe_impl: str = "scatter"):
+    """``params`` as the code reads it: the model itself off a mesh,
+    a :class:`_Gathered` view under one."""
+    ctx = fsdp.active()
+    if ctx is None:
+        return params
+    return _Gathered(params, *ctx,
+                     ep=moe_impl == "ep" and ep_shards(cfg) is not None)
+
+
+def _rows(batch: dict, device) -> dict:
+    """This rank's rows of each batch entry under a mesh; ``batch``
+    itself off one."""
+    ctx = fsdp.active()
+    if ctx is None:
+        return batch
+    return {k: fsdp.batch_block(torch.as_tensor(v, device=device), *ctx)
+            for k, v in batch.items()}
+
+
+def _all_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of ``t`` under a mesh; ``t`` off one."""
+    ctx = fsdp.active()
+    return t if ctx is None else fsdp.gather_rows(t, *ctx)
 
 
 def _layers(cfg):
@@ -238,10 +387,20 @@ def forward(params: GenericLM, cfg, batch: dict, *,
     activations are dropped after the forward and recomputed in the
     backward, as the reference's ``jax.checkpoint`` of its scanned
     period.  The values are the same either way."""
+    logits, aux = _forward(params, cfg, _rows(batch, params.device),
+                           moe_impl, remat)
+    return _all_rows(logits), aux
+
+
+def _forward(params: GenericLM, cfg, batch: dict, moe_impl: str,
+             remat: bool):
+    """:func:`forward` on this rank's rows: its logits and the aux
+    loss."""
     dtype = compute_dtype(cfg)
-    x, positions, kw = _context(params, cfg, batch, dtype)
     remat = remat and torch.is_grad_enabled() and any(
         p.requires_grad for p in params.parameters())
+    params = _read(params, cfg, moe_impl)
+    x, positions, kw = _context(params, cfg, batch, dtype)
     auxs = []
     for p in range(cfg.n_periods):
         body = functools.partial(_period, params, cfg, p, positions, kw,
@@ -262,9 +421,10 @@ def loss_fn(params: GenericLM, cfg, batch: dict, *, aux_weight: float = 0.01,
     ``(B, S)`` (labels < 0 masked out; a vision model's labels padded
     with -1 over its patch positions), from a float32 ``log_softmax``,
     plus ``aux_weight`` times the auxiliary loss.  Returns ``(loss,
-    {"lm_loss", "aux_loss"})``, as the reference's."""
-    logits, aux = forward(params, cfg, batch, moe_impl=moe_impl,
-                          remat=remat)
+    {"lm_loss", "aux_loss"})``, as the reference's.  Under a mesh the
+    value is the global mean and each rank differentiates its part."""
+    batch = _rows(batch, params.device)
+    logits, aux = _forward(params, cfg, batch, moe_impl, remat)
     labels = _on(params, batch["labels"])
     if logits.shape[1] != labels.shape[1]:      # vlm: patch positions
         labels = F.pad(labels, (logits.shape[1] - labels.shape[1], 0),
@@ -273,18 +433,41 @@ def loss_fn(params: GenericLM, cfg, batch: dict, *, aux_weight: float = 0.01,
     safe = labels.clamp_min(0)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    count = torch.sum(mask)
+    ctx = fsdp.active()
+    dims = () if ctx is None else fsdp.batch_dims(ctx[0], ctx[1])
+    if dims:
+        count = fsdp.reduced(count, ctx[0], dims)
+    loss = torch.sum(nll * mask) / torch.clamp_min(count, 1.0)
+    if dims:
+        loss = fsdp.reduced(loss, ctx[0], dims)
     return loss + aux_weight * aux, {"lm_loss": loss, "aux_loss": aux}
+
+
+def _cache_rows(batch: int) -> int:
+    """This rank's rows of a cache of ``batch`` sequences."""
+    ctx = fsdp.active()
+    if ctx is None:
+        return batch
+    n = math.prod(ctx[0].size(i) for i in fsdp.batch_dims(*ctx))
+    if batch % n:
+        raise ValueError(f"a batch of {batch} rows does not divide the {n} "
+                         f"batch shards of the mesh")
+    return batch // n
 
 
 def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0, *,
                device="cuda") -> dict:
     """The decode cache of ``batch`` sequences: ``max_len`` positions of
     each attention block's KV cache (the recurrent states have no time
-    axis) and ``enc_len`` of the encoder's keys and values."""
+    axis) and ``enc_len`` of the encoder's keys and values.  Under a mesh
+    it is this rank's: its rows and, under flash-decoding, its slice of
+    the positions (nothing else is allocated)."""
     dev = resolve_device(device)
     dtype = compute_dtype(cfg)
-    one = {f"b{j}": init_block_cache(cfg, kind, batch, max_len,
+    one = {f"b{j}": init_block_cache(cfg, kind, _cache_rows(batch),
+                                     _cache_len(max_len) if kind == "attn"
+                                     else max_len,
                                      cross=cfg.enc_dec, enc_len=enc_len,
                                      dtype=dtype, device=dev)
            for j, kind in enumerate(cfg.block_pattern)}
@@ -294,11 +477,59 @@ def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0, *,
         for name, leaves in one.items()}}
 
 
+_KV = ("k", "v", "k_s", "v_s")
+
+
+def _cache_len(max_len: int) -> int:
+    """This rank's positions of a KV cache of ``max_len``: its slice
+    under flash-decoding, which ``max_len`` must divide (the reference
+    falls back to the plain decode there; a rank's cache here must know
+    its slice)."""
+    sp = sp_shards()
+    if sp is None:
+        return max_len
+    n = sp[2]
+    if max_len % n:
+        raise ValueError(f"max_len={max_len} does not divide the {n} "
+                         f"sequence shards of flash-decoding")
+    return max_len // n
+
+
+def _keep_block(cfg, cache: dict, rows: bool) -> dict:
+    ctx = fsdp.active()
+    if ctx is None:
+        return cache
+    sp = sp_shards()
+    out = {}
+    for j, kind in enumerate(cfg.block_pattern):
+        leaves = {}
+        for k, v in cache["blocks"][f"b{j}"].items():
+            if rows:
+                v = fsdp.batch_block(v, *ctx, d=1)
+            if sp is not None and kind == "attn" and k in _KV:
+                T = _cache_len(v.shape[2])
+                v = v.narrow(2, fsdp.axes_offset(sp[0], sp[1], T), T)
+            leaves[k] = v.contiguous()
+        out[f"b{j}"] = leaves
+    return {"blocks": out}
+
+
+def shard_cache(cfg, cache: dict) -> dict:
+    """This rank's block of a full cache (every rank's identical copy,
+    e.g. from :func:`prefill` outside the context): its rows and, under
+    flash-decoding, its slice of each KV cache's positions.  Off a mesh,
+    ``cache`` itself."""
+    return _keep_block(cfg, cache, rows=True)
+
+
 def prefill(params: GenericLM, cfg, batch: dict, max_len: int, *,
             moe_impl: str = "scatter"):
     """Run the prompt; return (last-position logits ``(B, 1, vocab)``,
-    filled cache).  ``max_len`` is the cache's, as in :func:`init_cache`."""
+    filled cache).  ``max_len`` is the cache's, as in :func:`init_cache`
+    (under a mesh the cache is this rank's, as there)."""
     dtype = compute_dtype(cfg)
+    batch = _rows(batch, params.device)
+    params = _read(params, cfg, moe_impl)
     x, positions, kw = _context(params, cfg, batch, dtype)
     flags = _moe_flags(cfg)
     caches = {j: [] for j in range(cfg.period)}
@@ -309,7 +540,7 @@ def prefill(params: GenericLM, cfg, batch: dict, max_len: int, *,
         caches[j].append(cache)
     x = apply_norm(params, "norm_f", x, cfg.norm)
     logits = unembed(params, x[:, -1:], cfg.tie_embeddings, dtype)
-    return logits, _stack(caches)
+    return _all_rows(logits), _keep_block(cfg, _stack(caches), rows=False)
 
 
 def decode_step(params: GenericLM, cfg, cache: dict, tokens, index, *,
@@ -317,9 +548,11 @@ def decode_step(params: GenericLM, cfg, cache: dict, tokens, index, *,
     """One token for the whole batch.  ``tokens``: (B, 1); ``index``: the
     position of every row, a Python int (the attention kinds write their
     cache there and rotate by it; the recurrent kinds carry their
-    position in their state)."""
+    position in their state).  Under a mesh ``cache`` is this rank's
+    (:func:`init_cache`) and the logits are every rank's rows."""
     dtype = compute_dtype(cfg)
-    tokens = _on(params, tokens)
+    tokens = _rows({"tokens": _on(params, tokens)}, params.device)["tokens"]
+    params = _read(params, cfg, moe_impl)
     x = embed_lookup(params, tokens, impl=cfg.gather_impl,
                      compute_dtype=dtype)
     if cfg.rope == "none":
@@ -335,4 +568,5 @@ def decode_step(params: GenericLM, cfg, cache: dict, tokens, index, *,
                            dtype=dtype)
         caches[j].append(nc)
     x = apply_norm(params, "norm_f", x, cfg.norm)
-    return unembed(params, x, cfg.tie_embeddings, dtype), _stack(caches)
+    logits = unembed(params, x, cfg.tie_embeddings, dtype)
+    return _all_rows(logits), _stack(caches)

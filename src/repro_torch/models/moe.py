@@ -18,9 +18,26 @@ reference's:
     capacity counted per dispatch group (``groups``, 32 by default), so
     a different set of tokens may drop under overflow.
 ``ep``
-    the reference's manual expert parallelism runs only under a mesh,
-    which the port does not have yet (ROADMAP Queue 1, item 8); without
-    one the reference falls back to ``scatter``, and so does the port.
+    manual expert parallelism (:func:`_moe_manual_ep`) under a sharding
+    context whose ``ep`` axes have more than one rank and divide the
+    experts; elsewhere ``scatter``, as the reference falls back.
+
+**Under a mesh** each rank holds its rows of the batch.  ``scatter``
+keeps the one-device semantics the reference's GSPMD keeps: the
+capacity comes from the global token count, an assignment's position
+in its expert counts the assignments of the lower batch ranks first
+(the global flat order; an all-gather of one count per expert), and the
+aux loss is computed from the all-reduced per-expert sums.  Each rank
+computes only its own buffer rows (an expert's rows are independent).
+``einsum`` and ``grouped`` refuse a split batch.  Manual EP follows the
+reference's schedule: each rank routes its tokens against the full
+router, scatters only the assignments bound for its ``E / ep`` experts
+into a buffer of group-local capacity ``moe_capacity(cfg, N_local)``,
+runs its experts, and all-reduces the ``(N_local, d)`` output in the
+compute dtype over the ``ep`` axes; the aux loss, group-local, is
+averaged over the batch axes.  For training, the input's gradient is
+summed over the ``ep`` axes and the router's too (each rank's covers its
+experts), and each ``ep`` rank carries ``1/ep`` of the aux loss's.
 
 The reference's ``scatter-add`` into ``E * C + 1`` rows sends every
 dropped assignment, multiplied by 0, to the extra row and cuts it away;
@@ -36,17 +53,22 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..dist import fsdp
 from .layers import Params, activation
 
-__all__ = ["init_moe", "moe_forward", "moe_capacity"]
+__all__ = ["init_moe", "moe_forward", "moe_capacity", "ep_shards",
+           "gather_moe"]
 
 
 def init_moe(p: Params, cfg):
     d, ff, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
-    p.add("router", (d, E), scale=1.0 / math.sqrt(d))
-    p.add("w_gate", (E, d, ff), scale=1.0 / math.sqrt(d))
-    p.add("w_up", (E, d, ff), scale=1.0 / math.sqrt(d))
-    p.add("w_down", (E, ff, d), scale=1.0 / math.sqrt(ff))
+    p.add("router", (d, E), (None, "ep"), scale=1.0 / math.sqrt(d))
+    p.add("w_gate", (E, d, ff), ("ep", "fsdp", None),
+          scale=1.0 / math.sqrt(d))
+    p.add("w_up", (E, d, ff), ("ep", "fsdp", None),
+          scale=1.0 / math.sqrt(d))
+    p.add("w_down", (E, ff, d), ("ep", None, "fsdp"),
+          scale=1.0 / math.sqrt(ff))
 
 
 def moe_capacity(cfg, n_tokens: int) -> int:
@@ -96,9 +118,9 @@ def _positions_in_expert(e_flat: torch.Tensor, E: int) -> torch.Tensor:
 
 def _dispatch(params, cfg, xt, gates, slot, keep, n_rows: int, dtype):
     """The kept assignments' tokens into ``n_rows`` buffer rows, the
-    expert FFNs, and the gated outputs summed over each token's ``k``
+    expert FFNs (of ``params``'s experts), and the gated outputs summed over each token's ``k``
     assignments in float32: (N, d)."""
-    E, k = cfg.n_experts, cfg.top_k
+    E, k = params["w_gate"].shape[0], cfg.top_k
     N, d = xt.shape
     tok = torch.arange(N, device=xt.device).repeat_interleave(k)
     buf = xt.new_zeros((n_rows, d), dtype=dtype)
@@ -110,9 +132,109 @@ def _dispatch(params, cfg, xt, gates, slot, keep, n_rows: int, dtype):
     return (got * gk[:, None]).reshape(N, k, d).float().sum(1)
 
 
+def ep_shards(cfg):
+    """``(mesh, ep axes, ep shards)`` of manual expert parallelism under
+    the active sharding context: ``ep`` axes the mesh has, in the rules'
+    order, of more than one rank in all and dividing the experts; else
+    ``None`` (the reference's fallback to ``scatter``)."""
+    ctx = fsdp.active()
+    if ctx is None:
+        return None
+    mesh, rules = ctx
+    axes = tuple(a for a in rules.ep if a in mesh.mesh_dim_names)
+    n = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
+    if n == 1 or cfg.n_experts % n:
+        return None
+    return mesh, axes, n
+
+
+def gather_moe(module, mesh, rules, ep: bool) -> dict:
+    """A MoE layer's parameters as the layer reads them under a mesh
+    (:func:`repro_torch.dist.fsdp.gather`); under expert parallelism
+    (``ep``) each rank keeps its own experts and the router's gradient
+    is summed over the ``ep`` axes (each rank's covers its experts)."""
+    out = {}
+    for n, p in module.named_parameters(recurse=False):
+        router = n == "router"
+        out[n] = fsdp.gather(
+            p, mesh, rules, keep_axes=rules.ep if ep and not router else (),
+            sum_axes=rules.ep if ep and router else ())
+    return out
+
+
+def _own_experts(w: torch.Tensor, E: int, off: int, n: int):
+    """This rank's ``n`` experts from ``off``: ``w`` itself when it holds
+    only those (a placed parameter's block), else its slice."""
+    return w[off:off + n] if w.shape[0] == E else w
+
+
+def _moe_manual_ep(params, cfg, x: torch.Tensor, dtype):
+    """Manual expert parallelism (module docstring): ``(y, aux)`` for this
+    rank's rows ``x``, or ``None`` where the reference falls back."""
+    sh = ep_shards(cfg)
+    if sh is None:
+        return None
+    mesh, axes, n_ep = sh
+    _, rules = fsdp.active()
+    ep_dims = fsdp.axis_dims(mesh, axes)
+    b_dims = fsdp.batch_dims(mesh, rules)
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    E_loc = E // n_ep
+    Nl = B * S
+    xt = fsdp.sum_grad(x, mesh, ep_dims).reshape(Nl, d)
+    probs, gates, idx = _route(params, cfg, xt.float())
+    aux = _aux_loss(cfg, probs, idx)
+    aux = aux.detach() + (aux - aux.detach()) / n_ep
+    if b_dims:
+        n_b = math.prod(mesh.size(i) for i in b_dims)
+        aux = fsdp.reduced(aux / n_b, mesh, b_dims)
+    off = fsdp.axes_offset(mesh, axes, E_loc)
+    e_flat = idx.reshape(-1)
+    local = (e_flat >= off) & (e_flat < off + E_loc)
+    e_loc = torch.where(local, e_flat - off, E_loc)
+    C_loc = moe_capacity(cfg, Nl)
+    pos = _positions_in_expert(e_loc, E_loc + 1)
+    keep = local & (pos < C_loc)
+    slot = torch.where(keep, e_loc * C_loc + pos, E_loc * C_loc)
+    own = {n: _own_experts(params[n], E, off, E_loc)
+           for n in ("w_gate", "w_up", "w_down")}
+    y = _dispatch(own, cfg, xt, gates, slot, keep, E_loc * C_loc, dtype)
+    y = fsdp.reduced(y.to(dtype), mesh, ep_dims)
+    return y.reshape(B, S, d).to(x.dtype), aux
+
+
+def _split_batch():
+    """``(mesh, batch dims, shards)`` when the active context splits the
+    batch, else ``None``."""
+    ctx = fsdp.active()
+    dims = () if ctx is None else fsdp.batch_dims(*ctx)
+    if not dims:
+        return None
+    return ctx[0], dims, math.prod(ctx[0].size(i) for i in dims)
+
+
+def _global_aux(cfg, probs, idx, split) -> torch.Tensor:
+    """:func:`_aux_loss` over every rank's rows: the per-expert counts
+    and probability sums all-reduced; the gradient is this rank's part."""
+    mesh, dims, n = split
+    E = cfg.n_experts
+    counts = torch.bincount(idx.reshape(-1), minlength=E).float()
+    counts = fsdp.reduced(counts, mesh, dims)
+    f = counts / (idx.numel() * n)
+    P = fsdp.reduced(probs.sum(dim=0), mesh, dims) / (probs.shape[0] * n)
+    return E * torch.sum(f * P)
+
+
 def moe_forward(params, cfg, x: torch.Tensor, *, impl: str = "scatter",
                 dtype=torch.bfloat16, groups: int | None = None):
-    """MoE FFN.  ``x``: (B, S, d) -> ((B, S, d), aux loss)."""
+    """MoE FFN.  ``x``: (B, S, d) -> ((B, S, d), aux loss); under a mesh
+    ``x`` is this rank's rows (module docstring)."""
+    if impl == "ep":
+        out = _moe_manual_ep(params, cfg, x, dtype)
+        if out is not None:
+            return out
+        impl = "scatter"
     B, S, d = x.shape
     N = B * S
     xt = x.reshape(N, d)
@@ -121,10 +243,12 @@ def moe_forward(params, cfg, x: torch.Tensor, *, impl: str = "scatter",
     E, k = cfg.n_experts, cfg.top_k
 
     probs, gates, idx = _route(params, cfg, xf)
-    aux = _aux_loss(cfg, probs, idx)
-
-    if impl == "ep":
-        impl = "scatter"             # no mesh in the port (item 8)
+    split = _split_batch()
+    if split is not None and impl != "scatter":
+        raise ValueError(f"moe impl {impl!r} under a batch-split mesh: the "
+                         f"port keeps global semantics for scatter only")
+    aux = (_aux_loss(cfg, probs, idx) if split is None
+           else _global_aux(cfg, probs, idx, split))
     if impl == "einsum":
         onehot = F.one_hot(idx, E).float()                 # (N, k, E)
         sel = onehot.sum(1)                                # (N, E)
@@ -159,7 +283,14 @@ def moe_forward(params, cfg, x: torch.Tensor, *, impl: str = "scatter",
         raise ValueError(f"unknown moe impl {impl!r}")
     e_flat = idx.reshape(-1)                               # (N * k,)
     pos = _positions_in_expert(e_flat, E)
-    keep = pos < C
+    if split is None:
+        keep = pos < C
+    else:
+        mesh, dims, n = split
+        C = moe_capacity(cfg, N * n)
+        before, _ = fsdp.rank_prefix(torch.bincount(e_flat, minlength=E),
+                                     mesh, dims)
+        keep = pos + before[e_flat] < C
     slot = torch.where(keep, e_flat * C + pos, E * C)
     y = _dispatch(params, cfg, xt, gates, slot, keep, E * C, dtype)
     return y.reshape(B, S, d).to(x.dtype), aux

@@ -48,14 +48,14 @@ _SLSTM_KEYS = ("c", "n", "h", "m")
 
 def init_mamba(p: Params, cfg):
     d, di, ds = cfg.d_model, cfg.d_inner, cfg.d_state
-    init_dense(p, "in_proj", d, 2 * di)
-    p.add("conv_w", (cfg.d_conv, di), scale=1.0 / math.sqrt(cfg.d_conv))
-    p.add("conv_b", (di,), init="zeros")
-    init_dense(p, "x_proj", di, 2 * ds + 1)
-    p.add("dt_bias", (di,), init="zeros")
-    p.add("A_log", (di, ds), init="ones")
-    p.add("D", (di,), init="ones")
-    init_dense(p, "out_proj", di, d)
+    init_dense(p, "in_proj", d, 2 * di, ("fsdp", "tp"))
+    p.add("conv_w", (cfg.d_conv, di), (None, "tp"), scale=1.0 / math.sqrt(cfg.d_conv))
+    p.add("conv_b", (di,), ("tp",), init="zeros")
+    init_dense(p, "x_proj", di, 2 * ds + 1, ("tp", None))
+    p.add("dt_bias", (di,), ("tp",), init="zeros")
+    p.add("A_log", (di, ds), ("tp", None), init="ones")
+    p.add("D", (di,), ("tp",), init="ones")
+    init_dense(p, "out_proj", di, d, ("tp", "fsdp"))
 
 
 def _mamba_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -175,10 +175,10 @@ def mamba_step(params, cfg, x: torch.Tensor, cache: dict, *,
 
 def init_mlstm(p: Params, cfg):
     d, di = cfg.d_model, cfg.d_inner
-    init_dense(p, "qkv", d, 3 * di)
-    init_dense(p, "gates", d, 2 * cfg.n_heads)
-    init_dense(p, "up", d, di)
-    init_dense(p, "out_proj", di, d)
+    init_dense(p, "qkv", d, 3 * di, ("fsdp", "tp"))
+    init_dense(p, "gates", d, 2 * cfg.n_heads, ("fsdp", "tp"))
+    init_dense(p, "up", d, di, ("fsdp", "tp"))
+    init_dense(p, "out_proj", di, d, ("tp", "fsdp"))
 
 
 def _mlstm_heads(cfg, t: torch.Tensor) -> torch.Tensor:
@@ -300,9 +300,9 @@ def mlstm_step(params, cfg, x: torch.Tensor, cache: dict, *,
 
 def init_slstm(p: Params, cfg):
     d, di = cfg.d_model, cfg.d_inner
-    init_dense(p, "zifo", d, 4 * di)
-    p.add("r_zifo", (4, di), scale=1.0 / math.sqrt(di))   # diag recurrence
-    init_dense(p, "out_proj", di, d)
+    init_dense(p, "zifo", d, 4 * di, ("fsdp", "tp"))
+    p.add("r_zifo", (4, di), (None, "tp"), scale=1.0 / math.sqrt(di))   # diag recurrence
+    init_dense(p, "out_proj", di, d, ("tp", "fsdp"))
 
 
 def _state_dict(state: torch.Tensor) -> dict:

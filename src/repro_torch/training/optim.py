@@ -23,8 +23,15 @@ The port keeps one module per layer, where those leaves are 1-D: a leaf
 under ``layers.`` or ``enc_layers.`` counts with one more axis
 (:func:`reference_ndim`), so the same leaves decay as in the reference.
 
-Optimizer-state sharding specs (the reference's ``opt_state_specs``)
-wait for the LM stack under a mesh.
+**Under a mesh** (parameters placed by
+:func:`repro_torch.dist.place_params`) each moment is placed as its
+parameter (an int8 moment's scales replicate their last axis, as
+:func:`opt_state_specs` says), and each rank updates its own blocks.
+:func:`global_norm` counts every element once: a leaf's sum of squares
+is summed over the mesh dimensions that split it, not over those that
+replicate it.  Where an int8 moment's last axis is split, its absmax is
+all-reduced (MAX) over those mesh dimensions, so the scales are the
+one-device ones.
 """
 
 from __future__ import annotations
@@ -33,10 +40,14 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..dist import fsdp
+
 __all__ = ["AdamWConfig", "CHUNK_ELEMS", "adamw_update", "cosine_schedule",
-           "global_norm", "init_opt_state", "reference_ndim"]
+           "global_norm", "init_opt_state", "opt_state_specs",
+           "reference_ndim"]
 
 # Elements of one leaf updated at a time (a block of whole rows of its
 # last axis): 128 MB of float32 per temporary.
@@ -81,10 +92,16 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 # int8 moment quantisation
 # ----------------------------------------------------------------------
 
-def _q8(x: torch.Tensor):
+def _q8(x: torch.Tensor, split=None):
     """Symmetric per-channel int8 quantisation along the last axis:
-    ``(codes, scales)``, scales ``x.shape[:-1] + (1,)`` float32."""
+    ``(codes, scales)``, scales ``x.shape[:-1] + (1,)`` float32; with
+    ``split`` (the process groups of the mesh dimensions that split the
+    last axis), the absmax is the whole row's."""
     amax = x.abs().amax(dim=-1, keepdim=True)
+    if split is not None:
+        for g in split:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=g)
+        fsdp.COUNTS["all_reduce"] += len(split)
     scale = _div(torch.clamp_min(amax, 1e-20), 127.0)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -117,6 +134,40 @@ def _named(params) -> dict:
     return dict(params)
 
 
+def opt_state_specs(param_specs: dict, state_dtype: str) -> dict:
+    """Logical specs of the optimizer state, parallel to
+    :func:`init_opt_state` (moments keyed by parameter name, as
+    ``param_specs``); an int8 moment's scales replicate the last axis."""
+    def spec_of(s):
+        s = tuple(s)
+        if state_dtype == "int8":
+            return {"q": s, "s": s[:-1] + ("null",)}
+        return s
+
+    moments = {k: spec_of(s) for k, s in param_specs.items()}
+    return {"m": moments, "v": dict(moments), "step": ("null",)}
+
+
+def _scale_placements(p):
+    """An int8 moment's scales: placed as ``p``, the last axis whole."""
+    from torch.distributed.tensor import Replicate
+
+    last = p.ndim - 1
+    return [Replicate() if pl.is_shard() and pl.dim == last else pl
+            for pl in p.placements]
+
+
+def _last_axis_groups(p):
+    """Process groups of the mesh dimensions splitting ``p``'s last
+    axis, or ``None``."""
+    if not fsdp.is_placed(p):
+        return None
+    mesh, last = p.device_mesh, p.ndim - 1
+    groups = [mesh.get_group(i) for i, pl in enumerate(p.placements)
+              if pl.is_shard() and pl.dim == last and mesh.size(i) > 1]
+    return groups or None
+
+
 def reference_ndim(name: str, p: torch.Tensor) -> int:
     """The rank the reference gives leaf ``name``: one more for a block
     parameter, which the reference stacks over its layers."""
@@ -126,17 +177,29 @@ def reference_ndim(name: str, p: torch.Tensor) -> int:
 def init_opt_state(params, cfg: AdamWConfig) -> dict:
     """``{"m": {name: moment}, "v": {...}, "step": int32 0}``, zeros
     encoded in ``cfg.state_dtype`` on each parameter's device (an int8
-    zero's scale is ``1e-20 / 127``, as the reference encodes it)."""
-    def zero_like(p):
+    zero's scale is ``1e-20 / 127``, as the reference encodes it).  A
+    placed parameter's moments are placed as it is (module docstring)."""
+    def zero_local(shape, device):
         if cfg.state_dtype == "int8":
-            s = torch.full(tuple(p.shape[:-1]) + (1,), 1e-20,
-                           dtype=torch.float32, device=p.device)
-            return {"q": torch.zeros(p.shape, dtype=torch.int8,
-                                     device=p.device),
+            s = torch.full(tuple(shape[:-1]) + (1,), 1e-20,
+                           dtype=torch.float32, device=device)
+            return {"q": torch.zeros(shape, dtype=torch.int8,
+                                     device=device),
                     "s": _div(s, 127.0)}
-        return torch.zeros(p.shape, dtype=(
+        return torch.zeros(shape, dtype=(
             torch.bfloat16 if cfg.state_dtype == "bfloat16"
-            else torch.float32), device=p.device)
+            else torch.float32), device=device)
+
+    def zero_like(p):
+        if not fsdp.is_placed(p):
+            return zero_local(p.shape, p.device)
+        z = zero_local(p.to_local().shape, p.device)
+        mesh = p.device_mesh
+        if cfg.state_dtype != "int8":
+            return fsdp.like(z, mesh, p.placements, p.shape)
+        return {"q": fsdp.like(z["q"], mesh, p.placements, p.shape),
+                "s": fsdp.like(z["s"], mesh, _scale_placements(p),
+                               tuple(p.shape[:-1]) + (1,))}
 
     named = _named(params)
     device = next(iter(named.values())).device if named else "cpu"
@@ -164,15 +227,33 @@ def _rows(t: torch.Tensor, step: int):
 
 
 def global_norm(grads) -> torch.Tensor:
-    """``sqrt(sum of g^2)`` over every leaf, in float32."""
-    total = None
+    """``sqrt(sum of g^2)`` over every leaf, in float32; a placed leaf's
+    elements each once (module docstring)."""
+    totals = {}             # mesh dims splitting the leaves -> their sum
     for g in _named(grads).values():
+        key = None
+        if fsdp.is_placed(g):
+            mesh = g.device_mesh
+            key = (mesh, tuple(i for i, pl in enumerate(g.placements)
+                               if pl.is_shard() and mesh.size(i) > 1))
+            g = g.to_local()
         for block in _rows(g, _row_step(g)):
             sq = torch.sum(torch.square(block.to(torch.float32)))
-            total = sq if total is None else total + sq
-    if total is None:
+            totals[key] = sq if key not in totals else totals[key] + sq
+    if not totals:
         return torch.zeros((), dtype=torch.float32)
+    total = None
+    for key, sq in totals.items():
+        if key is not None and key[1]:
+            sq = fsdp.all_reduce(sq.clone(), key[0], key[1])
+        total = sq if total is None else total + sq
     return torch.sqrt(total)
+
+
+def _local_moment(enc):
+    if isinstance(enc, dict):
+        return {k: fsdp.local(v) for k, v in enc.items()}
+    return fsdp.local(enc)
 
 
 @torch.no_grad()
@@ -181,12 +262,14 @@ def adamw_update(grads, params, opt_state: dict, cfg: AdamWConfig):
     of tensors) and ``opt_state``'s moments and step are updated.
     ``grads`` maps each parameter's name to its gradient.  Returns
     ``(params, opt_state, {"grad_norm", "lr"})`` as the reference."""
-    named = _named(params)
-    grads = _named(grads)
+    named = {k: fsdp.local(p) for k, p in _named(params).items()}
+    splits = {k: _last_axis_groups(p) for k, p in _named(params).items()}
+    gnorm_in = _named(grads)
+    grads = {k: fsdp.local(g) for k, g in gnorm_in.items()}
     dev = next(iter(named.values())).device
     step = opt_state["step"] + 1
     lr = cosine_schedule(cfg, step)
-    gnorm = global_norm(grads).to(dev)
+    gnorm = global_norm(gnorm_in).to(dev)
     clip = torch.clamp_max(torch.full_like(gnorm, cfg.clip_norm)
                            / torch.clamp_min(gnorm, 1e-9), 1.0)
     stepf = step.to(torch.float32)
@@ -197,7 +280,7 @@ def adamw_update(grads, params, opt_state: dict, cfg: AdamWConfig):
 
     for name, p in named.items():
         g_all = grads[name]
-        m_enc, v_enc = opt_state["m"][name], opt_state["v"][name]
+        m_enc, v_enc = (_local_moment(opt_state[k][name]) for k in "mv")
         decay = reference_ndim(name, p) >= 2
         n = _row_step(p)
         parts = [p, g_all] + [t for e in (m_enc, v_enc)
@@ -219,7 +302,7 @@ def adamw_update(grads, params, opt_state: dict, cfg: AdamWConfig):
             pb.copy_((pf - lr * update).to(p.dtype))
             if int8:
                 for (q, s), x in (((mq, ms), m), ((vq, vs), v)):
-                    q_new, s_new = _q8(x)
+                    q_new, s_new = _q8(x, splits[name])
                     q.copy_(q_new)
                     s.copy_(s_new)
             else:

@@ -7,7 +7,10 @@ model), then :func:`repro_torch.training.optim.adamw_update`.  With
 ``accum_steps > 1`` the batch splits on axis 0 into microbatches whose
 gradients add up in float32, as the reference's.  On the card the
 gradient runs the backward kernels of rows 9 and 10 (``onehot`` gather,
-sLSTM recurrence) beside their forwards.
+sLSTM recurrence) beside their forwards.  Under a sharding context the
+step is data parallel with ZeRO-3 (:mod:`repro_torch.models.model`):
+each rank passes the same global batch and keeps its blocks of the
+parameters, gradients and moments; the loss is the global one.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import time
 
 import torch
 
+from ..dist import fsdp
 from ..models.model import loss_fn
 from .optim import AdamWConfig, adamw_update
 
@@ -76,14 +80,19 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, moe_impl: str = "scatter",
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             if acc is None:
-                acc = {n: g.to(torch.float32) for n, g in grads.items()}
+                acc = {n: fsdp.local(g).to(torch.float32)
+                       for n, g in grads.items()}
             else:
                 for n, g in grads.items():
-                    acc[n] += g.to(torch.float32)
+                    acc[n] += fsdp.local(g).to(torch.float32)
+            placed = {n: g for n, g in grads.items() if fsdp.is_placed(g)}
             del grads
         div = torch.full((), float(accum_steps), dtype=torch.float32,
                          device=loss_sum.device)
-        return loss_sum / div, metrics, {n: g / div for n, g in acc.items()}
+        mean = {n: g / div for n, g in acc.items()}
+        for n, g in placed.items():
+            mean[n] = fsdp.like(mean[n], g.device_mesh, g.placements, g.shape)
+        return loss_sum / div, metrics, mean
 
     def train_step(params, opt_state, batch):
         params.requires_grad_(True)

@@ -1,8 +1,10 @@
 """The port's training launcher (``python -m repro_torch.launch.train``)
 on the CPU, as ``tests/test_launch.py`` and the verify recipe run the
-reference's: reduced chatglm3-6b, 6 steps, a checkpoint every 3."""
+reference's: reduced chatglm3-6b, 6 steps, a checkpoint every 3; on a
+world of one (a 1x1 mesh) and of two gloo ranks."""
 
 import argparse
+import json
 import os
 import pathlib
 import subprocess
@@ -36,11 +38,54 @@ def test_launcher_trains_and_checkpoints(tmp_path):
     assert (step, restarts) == (5, 0)
 
 
-def test_production_mesh_names_the_roadmap_item(capsys):
+def test_production_mesh_needs_its_world(capsys):
     with pytest.raises(SystemExit) as exc:
         train.main(["--production-mesh", "--device", "cpu"])
     assert exc.value.code != 0
-    assert "item 8b" in capsys.readouterr().err
+    assert ("make_production_mesh: the 16x16 mesh needs a world of 256 "
+            "ranks, not 1") in capsys.readouterr().err
+
+
+def _losses(out: str) -> dict:
+    line = [ln for ln in out.splitlines() if ln.startswith("losses ")][-1]
+    return json.loads(line.removeprefix("losses "))
+
+
+@pytest.mark.parametrize("batch,accum", [(2, 1), (4, 2)])
+def test_launcher_trains_on_two_gloo_ranks(tmp_path, batch, accum):
+    """Two processes joined through a file store train on a 2x1 mesh:
+    rank 0 reports the mesh, the loop finishes and checkpoints, and each
+    step's loss (the global mean) is the one-rank launcher's, also with
+    gradients accumulated over two microbatches."""
+    args = ["--arch", "chatglm3-6b", "--reduced", "--steps", "3", "--seq",
+            "16", "--batch", str(batch), "--accum-steps", str(accum),
+            "--save-every", "2", "--device", "cpu"]
+    base = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    base.pop("XLA_FLAGS", None)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *args]
+    env = dict(base, WORLD_SIZE="2",
+               REPRO_TORCH_INIT_METHOD=f"file://{tmp_path / 'store'}")
+    procs = [subprocess.Popen(cmd + ["--ckpt", str(tmp_path / "ck2")],
+                              env=dict(env, RANK=str(r)), text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for r in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs[0][1][-3000:]
+    out = outs[0][0]
+    assert "mesh={'data': 2, 'model': 1}" in out
+    assert "batch->data (split), fsdp->data (split)" in out
+    assert "finished at step 3 (0 restarts)" in out
+    assert not outs[1][0].strip()                 # rank 0 prints
+    assert sorted(p.name for p in (tmp_path / "ck2").iterdir()) == [
+        "step_000000002"]
+    one = subprocess.run(cmd + ["--ckpt", str(tmp_path / "ck1")], env=base,
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    assert "mesh={'data': 1, 'model': 1}" in one
+    got, want = _losses(out), _losses(one)
+    assert sorted(got) == sorted(want) == ["0", "1", "2"]
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-5 * abs(want[k]), (k, got, want)
 
 
 def test_train_launchers_have_the_same_defaults(monkeypatch):
