@@ -66,7 +66,18 @@ moments split) against one rank, rows 9, 9b, 10, 10b launched on each
 rank, the checkpoint restored on one rank bitwise; chatglm3-6b (float32)
 under flash-decoding over a sequence-split KV cache and
 qwen3-moe-235b-a22b (2 layers) under manual expert parallelism, each
-held to one rank's plain run.  Any failed check exits non-zero.  The
+held to one rank's plain run.  Last, tensor and sequence parallelism
+(phase 17, gloo ranks on the one card): chatglm3-6b at full width in
+float32 on a (1, 2) ``tp`` mesh, four prompts' prefills and eight
+decode steps each against one rank (and in bfloat16 its greedy tokens'
+agreement), with the bytes, collectives and ms each rank takes;
+xlstm-125m trained on a (2, 2) mesh (``tp`` on ``model``) against 16b's
+one-rank runs, rows 9, 9b, 10 and 10b launched on every rank at the
+split shapes and held there to their plain versions; jamba-v0.1-52b one
+period deep in float32 under ``tp=ep``; chatglm3-6b at 4 layers under
+``sp_act``, its logits, loss and gradient norm against one rank; then
+the four kernels timed at a rank's shapes.  Any failed check exits
+non-zero.  The
 last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the JSON record of
 every kernel of the path.  Needs one CUDA card; imports nothing of JAX
@@ -79,6 +90,7 @@ import asyncio
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -3283,7 +3295,8 @@ def check_train_step(cfg, dev) -> dict:
                                             plain_recurrence))
                 stack.enter_context(patched(
                     gather_ops, "cuda_onehot_gather",
-                    lambda t, i: gather_ref(t, i.to(t.device))))
+                    lambda t, i, offset=0: gather_ref(
+                        t, i.to(t.device) - offset)))
             zero_launches()
             loss, _ = loss_fn(model, cut, batch)
             grads = {k: v.detach() for k, v in _grads(model, loss).items()}
@@ -3507,7 +3520,8 @@ def rank_train(rank: int, d: pathlib.Path, dev, meta: dict) -> dict:
                                       make_train_step)
 
     cfg = mesh_cfg(meta)
-    mesh = make_local_mesh(MESH_RANKS, 1, device=dev)
+    # 16b: (2, 1); 17b: (2, 2), where the rules' tp=("model",) splits.
+    mesh = make_local_mesh(*meta.get("mesh", (MESH_RANKS, 1)), device=dev)
     rules = ShardingRules(batch=("pod", "data"), fsdp=("data",))
     ocfg = AdamWConfig(lr=3e-3, warmup_steps=10,
                        total_steps=MESH_TRAIN_STEPS)
@@ -3549,10 +3563,18 @@ def rank_train(rank: int, d: pathlib.Path, dev, meta: dict) -> dict:
                                      t, "placements", ()))
                                  if pl.is_shard() and mesh.size(i) > 1]}
                   for n, t in leaves.items()}
-    return {"ok": True, "losses": losses, "grad_norms": gnorms,
-            "step_s": times, "launches": launches,
-            "collectives_per_step": coll, "held_bytes": held,
-            "full_bytes": full, "blocks": blocks}
+    rec = {"ok": True, "losses": losses, "grad_norms": gnorms,
+           "step_s": times, "launches": launches,
+           "collectives_per_step": coll, "held_bytes": held,
+           "full_bytes": full, "blocks": blocks}
+    if meta.get("split_checks"):
+        from repro_torch.dist import tp
+
+        with sharding_context(mesh, rules):
+            s = tp.split()
+        rec["split_checks"] = split_kernel_checks(cfg, s.r, s.n, dev)
+        rec["ok"] = all(c["ok"] for c in rec["split_checks"].values())
+    return rec
 
 
 def rank_decode(rank: int, d: pathlib.Path, dev, meta: dict) -> dict:
@@ -3663,12 +3685,14 @@ def mesh_rank(phase: str, rank: int, tmp: str) -> int:
     meta = json.loads((d / "meta.json").read_text())
     dev = (torch.device("cuda", 0) if meta.get("device", "cuda") == "cuda"
            else torch.device("cpu"))
+    world = meta.get("world", MESH_RANKS)
     dist.init_process_group(
-        "gloo", store=dist.FileStore(str(d / "store"), MESH_RANKS),
-        rank=rank, world_size=MESH_RANKS,
+        "gloo", store=dist.FileStore(str(d / "store"), world),
+        rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
     try:
-        run = {"16b": rank_train, "16c": rank_decode, "16d": rank_ep}[phase]
+        run = {"16b": rank_train, "16c": rank_decode, "16d": rank_ep,
+               "17acd": rank_tp, "17b": rank_train}[phase]
         rec = run(rank, d, dev, meta)
     finally:
         dist.destroy_process_group()
@@ -3676,12 +3700,12 @@ def mesh_rank(phase: str, rank: int, tmp: str) -> int:
     return 0 if rec["ok"] else 1
 
 
-def mesh_ranks(phase: str, d: pathlib.Path) -> list:
-    """Run phase ``phase``'s MESH_RANKS ranks on DIR ``d``; their records.
+def mesh_ranks(phase: str, d: pathlib.Path, n: int = MESH_RANKS) -> list:
+    """Run phase ``phase``'s ``n`` ranks on DIR ``d``; their records.
     A rank that fails, or outlasts MESH_TIMEOUT_S, fails the phase."""
     t0 = time.perf_counter()
     procs = []
-    for r in range(MESH_RANKS):
+    for r in range(n):
         with open(d / f"rank{r}.log", "w") as log:
             procs.append(subprocess.Popen(
                 [sys.executable, str(pathlib.Path(__file__).resolve()),
@@ -3752,12 +3776,11 @@ def mesh_launcher(cfg, dev, launcher15b: dict) -> dict:
     return dict(res, wall_s=wall, bitwise=same)
 
 
-def check_mesh_train(cfg, dev, tmp: pathlib.Path, meta: dict) -> dict:
-    """16b: MESH_TRAIN_STEPS steps of ``cfg`` (onehot) on MESH_RANKS gloo
-    ranks against the same steps on one rank; the launches and bytes
-    per rank; the checkpoint the ranks saved restored on one rank, each
-    rank's block of every leaf bitwise."""
-    from repro_torch.ckpt import load_checkpoint
+def one_rank_train(cfg, dev, tmp: pathlib.Path) -> tuple:
+    """MESH_TRAIN_STEPS steps of ``cfg`` at TRAIN_SHAPE on one rank, in
+    one batch and in two microbatches (the batches written to ``tmp`` for
+    the ranks): (the runs' (loss, grad norm, s) a step, the microbatched
+    run's loss gaps, and the later steps' loss bounds of a mesh run)."""
     from repro_torch.data import TokenDataset
     from repro_torch.models import init_model
     from repro_torch.training import (AdamWConfig, init_opt_state,
@@ -3769,7 +3792,6 @@ def check_mesh_train(cfg, dev, tmp: pathlib.Path, meta: dict) -> dict:
     for i, b in enumerate(batches):
         np.savez(tmp / f"batch{i}.npz",
                  **{k: v.cpu().numpy() for k, v in b.items()})
-    (tmp / "meta.json").write_text(json.dumps(meta))
     ocfg = AdamWConfig(lr=3e-3, warmup_steps=10,
                        total_steps=MESH_TRAIN_STEPS)
     runs = {}
@@ -3787,13 +3809,28 @@ def check_mesh_train(cfg, dev, tmp: pathlib.Path, meta: dict) -> dict:
         sync(dev)
         torch.cuda.empty_cache()
     one, two = runs[1], runs[2]
+    micro = [abs(two[i][0] - one[i][0]) / abs(one[i][0])
+             for i in range(MESH_TRAIN_STEPS)]
+    return one, two, micro, [max(MESH_TRAIN_RTOL[1], 2 * g) for g in micro]
+
+
+def check_mesh_train(cfg, dev, tmp: pathlib.Path, meta: dict) -> dict:
+    """16b: MESH_TRAIN_STEPS steps of ``cfg`` (onehot) on MESH_RANKS gloo
+    ranks against the same steps on one rank; the launches and bytes
+    per rank; the checkpoint the ranks saved restored on one rank, each
+    rank's block of every leaf bitwise."""
+    from repro_torch.ckpt import load_checkpoint
+    from repro_torch.models import init_model
+    from repro_torch.training import AdamWConfig, init_opt_state
+
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=10,
+                       total_steps=MESH_TRAIN_STEPS)
+    (tmp / "meta.json").write_text(json.dumps(meta))
+    one, two, micro, later = one_rank_train(cfg, dev, tmp)
     recs = mesh_ranks("16b", tmp)
     r0 = recs[0]
     gaps = [abs(r0["losses"][i] - one[i][0]) / abs(one[i][0])
             for i in range(MESH_TRAIN_STEPS)]
-    micro = [abs(two[i][0] - one[i][0]) / abs(one[i][0])
-             for i in range(MESH_TRAIN_STEPS)]
-    later = [max(MESH_TRAIN_RTOL[1], 2 * g) for g in micro]
     gn_gap = abs(r0["grad_norms"][0] - one[0][1]) / one[0][1]
     n_slstm = sum(k == "slstm" for k in cfg.block_pattern) * cfg.n_periods
     per_step = {"onehot_gather": 1, "onehot_gather_backward": 1,
@@ -3941,7 +3978,8 @@ def run_mesh(xcfg, glm_cfg, moe_cfg, dev, card: str, launcher15b: dict,
              reduced: dict | None = None) -> dict:
     """Phase 16 on ``xcfg`` (xlstm-125m), ``glm_cfg`` (chatglm3-6b) and
     ``moe_cfg`` (qwen3-moe at EP_DEPTH layers); prints the details and
-    returns the ranks' launches of rows 9, 9b, 10 and 10b.  ``reduced``
+    returns the ranks' launches of rows 9, 9b, 10 and 10b, and 16b's
+    record (phase 17 holds its ranks to 16b's one-rank runs).  ``reduced``
     (``{"vocab": V}``) has the ranks rebuild reduced configs (CPU
     rehearsals)."""
     t0 = time.perf_counter()
@@ -3986,10 +4024,595 @@ def run_mesh(xcfg, glm_cfg, moe_cfg, dev, card: str, launcher15b: dict,
     print(json.dumps({"mesh_detail": {
         "card": card, "phase_s": phase_s, "launcher_1x1": a,
         "train_data2": b, "decode_sp": c, "ep": d}}))
-    return launches
+    return launches, b
+
+
+# ----------------------------------------------------------------------
+# Tensor and sequence parallelism (phase 17)
+# ----------------------------------------------------------------------
+
+TP_RANKS = 2                        # 17a, 17c, 17d: a (1, 2) mesh
+TP_TRAIN_MESH = (2, 2)              # 17b: (data, model)
+TP_PROMPTS = 4                      # 17a: prompts of LM_PROMPT tokens
+TP_DECODE = 8                       # 17a: teacher-forced decode steps
+# x max(1, max|ref|) per element: 16c's float32 bound (17a, 17d's
+# logits); 16d's for the experts split over the ranks (17c).
+TP_TOL = 1e-5
+TP_JAMBA = (64, 4)                  # 17c: prompt, decode steps
+TP_JAMBA_TOL = 1e-4
+TP_SP = (4, 2, 256)                 # 17d: depth, B, S
+TP_SP_RTOL = 1e-5                   # 17d: the loss and the gradient norm
+TP_GATHER = ((25152, 768, "bfloat16", 512), (32512, 4096, "float32", 4),
+             (32512, 4096, "float32", 512))   # rows 9/9b: a rank's V/2
+TP_SLSTM = ((1, 64), (4, 64))       # rows 10/10b at di/2: (B, S)
+TP_KERNELS = ("onehot_gather", "onehot_gather_backward", "slstm",
+              "slstm_backward")
+
+
+def tp_rules(sp: bool = False, ep: bool = False):
+    from repro_torch.dist.sharding import ShardingRules
+
+    return ShardingRules(batch=("data",), fsdp=(), tp=("model",),
+                         ep=("model",) if ep else (),
+                         sp_act=("model",) if sp else ())
+
+
+def free(dev) -> None:
+    """Return the memory of what the caller dropped to the card at once
+    (a reference cycle would keep a model alive until a collection)."""
+    import gc
+
+    gc.collect()
+    sync(dev)
+    torch.cuda.empty_cache()
+
+
+def held_bytes(model) -> tuple[int, int]:
+    """(bytes this rank holds, bytes of the whole model)."""
+    from repro_torch.dist import fsdp
+
+    ps = list(model.parameters())
+    return (sum(fsdp.local(p).numel() * p.element_size() for p in ps),
+            sum(p.numel() * p.element_size() for p in ps))
+
+
+def cache_bytes(cache: dict) -> int:
+    return sum(v.numel() * v.element_size()
+               for leaves in cache["blocks"].values()
+               for v in leaves.values())
+
+
+def tp_decode(model, cfg, prompts, dev, moe_impl="scatter", steps=TP_DECODE):
+    """Each prompt's prefill and ``steps`` teacher-forced decode steps:
+    (logits (prompts, steps + 1, V) float32 on the host, ms per decode
+    step, cache bytes of the last prompt, collectives per step)."""
+    from repro_torch.dist import fsdp
+    from repro_torch.models.model import decode_step, prefill
+
+    rows, ms, coll = [], [], []
+    for p in prompts:
+        L = p.shape[1] - steps
+        lg, cache = prefill(model, cfg, {"tokens": p[:, :L]}, L + steps,
+                            moe_impl=moe_impl)
+        out = [lg[0, -1].float().cpu()]
+        for i in range(steps):
+            sync(dev)
+            before = sum(fsdp.COUNTS.values())
+            t0 = time.perf_counter()
+            lg, cache = decode_step(model, cfg, cache, p[:, L + i:L + i + 1],
+                                    L + i, moe_impl=moe_impl)
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            coll.append(sum(fsdp.COUNTS.values()) - before)
+            out.append(lg[0, -1].float().cpu())
+        rows.append(torch.stack(out))
+    return torch.stack(rows), ms, cache_bytes(cache), coll
+
+
+def rank_tp(rank: int, d: pathlib.Path, dev, meta: dict) -> dict:
+    """17a, 17c and 17d on one rank of the (1, TP_RANKS) mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import sharding_context
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import forward, init_model, loss_fn
+    from repro_torch.training.optim import global_norm
+
+    mesh = make_local_mesh(1, TP_RANKS, device=dev)
+    rec = {"ok": True}
+    prompts = [torch.from_numpy(np.load(d / f"prompt{i}.npy")).to(dev)
+               for i in range(TP_PROMPTS)]
+    glm = mesh_cfg(meta["glm"])
+    rules = tp_rules()
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(glm, param_dtype=dtype)
+        model = init_model(cfg, seed=SEED, device=dev, mesh=mesh,
+                           rules=rules)
+        zero_launches(dev)
+        with torch.no_grad(), sharding_context(mesh, rules):
+            lg, ms, cbytes, coll = tp_decode(model, cfg, prompts, dev)
+        held, full = held_bytes(model)
+        r = {"ms": ms, "cache_bytes": cbytes, "collectives": coll,
+             "held_bytes": held, "full_bytes": full,
+             "launches": {k: LAUNCHES[k] for k in TP_KERNELS}}
+        if dtype == "float32":
+            ref = torch.from_numpy(np.load(d / "glm_float32.npy"))
+            r["max_abs_err"] = float((lg - ref).abs().max())
+            r["bound"] = TP_TOL * max(1.0, float(ref.abs().max()))
+            rec["ok"] &= r["max_abs_err"] <= r["bound"]
+        else:
+            ref = np.load(d / "glm_bfloat16_tokens.npy")
+            r["agreement"] = float((lg.argmax(-1).numpy() == ref).mean())
+        rec[f"17a_{dtype}"] = r
+        del model
+        free(dev)
+        dist.barrier()
+    # 17c: jamba, its experts over ep and the rest over tp.
+    cfg = mesh_cfg(meta["jamba"])
+    rules = tp_rules(ep=True)
+    model = init_model(cfg, seed=SEED, device=dev, mesh=mesh, rules=rules)
+    toks = torch.from_numpy(np.load(d / "jamba_tokens.npy")).to(dev)
+    zero_launches(dev)
+    with torch.no_grad(), sharding_context(mesh, rules):
+        lg, ms, cbytes, coll = tp_decode(model, cfg, [toks], dev,
+                                         moe_impl="ep", steps=TP_JAMBA[1])
+    ref = torch.from_numpy(np.load(d / "jamba.npy"))
+    held, full = held_bytes(model)
+    err = float((lg - ref).abs().max())
+    bound = TP_JAMBA_TOL * max(1.0, float(ref.abs().max()))
+    rec["17c"] = {"max_abs_err": err, "bound": bound, "ms": ms,
+                  "cache_bytes": cbytes, "collectives": coll,
+                  "held_bytes": held, "full_bytes": full}
+    rec["ok"] &= err <= bound
+    del model
+    free(dev)
+    dist.barrier()
+    # 17d: the stream split along the sequence.
+    cfg = mesh_cfg(meta["sp"])
+    rules = tp_rules(sp=True)
+    model = init_model(cfg, seed=SEED, device=dev, mesh=mesh, rules=rules)
+    model.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in np.load(d / "sp_batch.npz").items()}
+    want = json.loads((d / "sp_ref.json").read_text())
+    with sharding_context(mesh, rules):
+        with torch.no_grad():
+            lg, _ = forward(model, cfg, {"tokens": batch["tokens"]},
+                            remat=False)
+        ref = torch.from_numpy(np.load(d / "sp_logits.npy"))
+        err = float((lg.float().cpu() - ref).abs().max())
+        sync(dev)
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(model, cfg, batch)
+        named = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(named.values()))
+        gnorm = float(global_norm(dict(zip(named, grads))))
+        sync(dev)
+        wall = time.perf_counter() - t0
+    bound = TP_TOL * max(1.0, float(ref.abs().max()))
+    gaps = {"loss": abs(float(loss.detach()) - want["loss"]) / want["loss"],
+            "grad_norm": abs(gnorm - want["grad_norm"]) / want["grad_norm"]}
+    rec["17d"] = {"max_abs_err": err, "bound": bound,
+                  "loss": float(loss.detach()),
+                  "grad_norm": gnorm, "gaps": gaps, "step_s": wall}
+    rec["ok"] &= err <= bound and max(gaps.values()) <= TP_SP_RTOL
+    return rec
+
+
+def split_kernel_checks(cfg, r: int, n: int, dev) -> dict:
+    """Rows 9, 9b, 10 and 10b at this tensor-parallel rank's shapes
+    (rank ``r`` of ``n``: V/n rows from r V/n, di/n units), each held to
+    its plain version: 9 and 9b bitwise (9b's ids about half outside the
+    block), 10 and 10b at SLSTM_TOL."""
+    from repro_torch.kernels.gather import launch_onehot_gather_grad
+    from repro_torch.kernels.gather_kernel_ops import cuda_onehot_gather
+    from repro_torch.kernels.gather_ref import gather_grad_ref, gather_ref
+    from repro_torch.kernels.slstm import (launch_slstm,
+                                           launch_slstm_backward,
+                                           launch_slstm_train)
+    from repro_torch.kernels.slstm_ref import (init_slstm_state,
+                                               slstm_backward_ref,
+                                               slstm_recurrence_ref)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 17 + r)
+    V, D = cfg.vocab // n, cfg.d_model
+    off = r * V
+    ids = torch.randint(0, cfg.vocab, (TRAIN_SHAPE[0] * TRAIN_SHAPE[1],),
+                        generator=g, device=dev)
+    ids[0], ids[1] = off - 1, off + V
+    table = torch.randn((V, D), generator=g, device=dev).to(torch.bfloat16)
+    dout = torch.randn((ids.shape[0], D), generator=g,
+                       device=dev).to(torch.bfloat16)
+    got = cuda_onehot_gather(table, ids, offset=off)
+    grad = launch_onehot_gather_grad(ids - off, dout, V)
+    inside = float(((ids >= off) & (ids < off + V)).float().mean())
+    out = {"row9": {"V": V, "offset": off, "ok": torch.equal(
+               got, gather_ref(table, ids - off))},
+           "row9b": {"V": V, "inside": inside, "ok": torch.equal(
+               grad, gather_grad_ref(ids - off, dout, V))}}
+    di = cfg.d_inner // n
+    B, S = TRAIN_SHAPE[0] // 2, TRAIN_SHAPE[1]
+    zifo = torch.randn((B, S, 4, di), generator=g, device=dev)
+    rr = torch.randn((4, di), generator=g, device=dev) / di ** 0.5
+    state = init_slstm_state(B, di, device=dev)
+    dhs = torch.randn((B, S, di), generator=g, device=dev)
+    hs, _ = launch_slstm(zifo, rr, state)
+    ths, _, states = launch_slstm_train(zifo, rr, state)
+    dz, dr = launch_slstm_backward(zifo, rr, state, ths, states, dhs)
+    want, _ = slstm_recurrence_ref(zifo, rr, state)
+    wz, wr = slstm_backward_ref(zifo, rr, state, dhs)
+    out["row10"] = {"di": di, "excess": excess(hs, want, SLSTM_TOL)}
+    out["row10b"] = {"di": di, "excess": max(excess(dz, wz, SLSTM_TOL),
+                                             excess(dr, wr, SLSTM_TOL))}
+    for k in ("row10", "row10b"):
+        out[k]["ok"] = out[k]["excess"] <= 0
+    sync(dev)
+    return out
+
+
+def tp_refs(glm, jamba, sp_cfg, dev, d: pathlib.Path) -> dict:
+    """One rank's runs that phase 17 holds the ranks to, written to
+    ``d``: 17a's logits (float32) and greedy tokens (bfloat16), 17c's
+    logits, 17d's logits, loss and gradient norm."""
+    from repro_torch.models.model import forward, init_model, loss_fn
+    from repro_torch.training.optim import global_norm
+
+    rng = np.random.default_rng(SEED + 17)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, TP_PROMPTS)
+    prompts = []
+    for i, L in enumerate(lens):
+        p = seeded_ints(glm.vocab, (1, int(L) + TP_DECODE), dev,
+                        SEED + 170 + i)
+        np.save(d / f"prompt{i}.npy", p.cpu().numpy())
+        prompts.append(p)
+    out = {"prompt_lens": [int(x) for x in lens]}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(glm, param_dtype=dtype)
+        model = init_model(cfg, seed=SEED, device=dev)
+        with torch.no_grad():
+            lg, ms, cbytes, _ = tp_decode(model, cfg, prompts, dev)
+        if dtype == "float32":
+            np.save(d / "glm_float32.npy", lg.numpy())
+        else:
+            np.save(d / "glm_bfloat16_tokens.npy", lg.argmax(-1).numpy())
+        out[f"17a_{dtype}"] = {"ms": ms, "cache_bytes": cbytes,
+                               "param_bytes": held_bytes(model)[1]}
+        del model
+        sync(dev)
+        torch.cuda.empty_cache()
+    model = init_model(jamba, seed=SEED, device=dev)
+    toks = seeded_ints(jamba.vocab, (1, sum(TP_JAMBA)), dev, SEED + 171)
+    np.save(d / "jamba_tokens.npy", toks.cpu().numpy())
+    with torch.no_grad():
+        lg, ms, cbytes, _ = tp_decode(model, jamba, [toks], dev,
+                                      steps=TP_JAMBA[1])
+    np.save(d / "jamba.npy", lg.numpy())
+    out["17c"] = {"ms": ms, "cache_bytes": cbytes,
+                  "param_bytes": held_bytes(model)[1]}
+    del model
+    sync(dev)
+    torch.cuda.empty_cache()
+    _, B, S = TP_SP
+    batch = {"tokens": seeded_ints(sp_cfg.vocab, (B, S), dev, SEED + 172),
+             "labels": seeded_ints(sp_cfg.vocab, (B, S), dev, SEED + 173)}
+    np.savez(d / "sp_batch.npz", **{k: v.cpu().numpy()
+                                    for k, v in batch.items()})
+    model = init_model(sp_cfg, seed=SEED, device=dev).requires_grad_(True)
+    with torch.no_grad():
+        lg, _ = forward(model, sp_cfg, {"tokens": batch["tokens"]},
+                        remat=False)
+    np.save(d / "sp_logits.npy", lg.float().cpu().numpy())
+    sync(dev)
+    t0 = time.perf_counter()
+    loss, _ = loss_fn(model, sp_cfg, batch)
+    named = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()))
+    gnorm = float(global_norm(dict(zip(named, grads))))
+    sync(dev)
+    out["17d"] = {"loss": float(loss.detach()), "grad_norm": gnorm,
+                  "step_s": time.perf_counter() - t0}
+    (d / "sp_ref.json").write_text(json.dumps(out["17d"]))
+    del model, grads, lg
+    sync(dev)
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_split_kernels(xcfg, glm, dev) -> dict:
+    """Rows 9, 9b, 10 and 10b timed at a tp = 2 rank's shapes (one
+    process): ms on the device, the plain version's, the bound and, for
+    9 and 9b, the PyTorch call for the same function."""
+    from repro_torch.kernels.gather import launch_onehot_gather_grad
+    from repro_torch.kernels.gather_kernel_ops import cuda_onehot_gather
+    from repro_torch.kernels.gather_ref import gather_grad_ref, gather_ref
+    from repro_torch.kernels.slstm import (BWD_CHUNK, launch_slstm,
+                                           launch_slstm_backward,
+                                           launch_slstm_train)
+    from repro_torch.kernels.slstm_ref import (init_slstm_state,
+                                               slstm_backward_ref,
+                                               slstm_recurrence_ref)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    out = {"row9": {}, "row9b": {}, "row10": {}, "row10b": {}}
+    for V, D, dt, N in TP_GATHER:
+        dtype = getattr(torch, dt)
+        ids = torch.randint(0, 2 * V, (N,), generator=g, device=dev)
+        table = torch.randn((V, D), generator=g, device=dev).to(dtype)
+        dout = torch.randn((N, D), generator=g, device=dev).to(dtype)
+        local = ids - V                  # rank 1: about half out of range
+        inside = (local >= 0) & (local < V)
+        clamped = local.clamp(0, V - 1)
+        inner = 5 if N > 512 or D > 1024 else 20
+        key = f"V={V} D={D} {dt} N={N}"
+        ms = device_ms(lambda: cuda_onehot_gather(table, ids, offset=V),
+                       inner)
+        lib = device_ms(lambda: F.embedding(clamped, table), inner)
+        plain = per_call_ms(lambda: gather_ref(table, local), 2, reps=3)
+        bms, by = bytes_bound(N * D * dtype.itemsize + N * 8
+                              + int(inside.sum()) * D * dtype.itemsize)
+        out["row9"][key] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                            "bound_ms": bms, "bound_by": by}
+        ms = device_ms(lambda: launch_onehot_gather_grad(local, dout, V),
+                       inner)
+        lib = device_ms(lambda: torch.ops.aten.embedding_dense_backward(
+            dout, clamped, V, -1, False), inner)
+        plain = per_call_ms(lambda: gather_grad_ref(local, dout, V), 2,
+                            reps=3)
+        bms, by = bytes_bound((V + N) * D * dtype.itemsize + N * 8)
+        out["row9b"][key] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                             "bound_ms": bms, "bound_by": by,
+                             "inside": float(inside.float().mean())}
+    di = xcfg.d_inner // 2
+    for B, S in TP_SLSTM:
+        zifo = torch.randn((B, S, 4, di), generator=g, device=dev)
+        r = torch.randn((4, di), generator=g, device=dev) / di ** 0.5
+        state = init_slstm_state(B, di, device=dev)
+        dhs = torch.randn((B, S, di), generator=g, device=dev)
+        key = f"di={di} B={B} S={S}"
+        bms, by = slstm_bound(B, S, di)
+        out["row10"][key] = {
+            "ms": device_ms(lambda: launch_slstm(zifo, r, state)),
+            "plain_ms": per_call_ms(
+                lambda: slstm_recurrence_ref(zifo, r, state), 1, reps=3),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+        hs, _, states = launch_slstm_train(zifo, r, state)
+        bms, by, _, _ = slstm_bwd_bound(B, S, di, BWD_CHUNK)
+        out["row10b"][key] = {
+            "ms": device_ms(lambda: launch_slstm_backward(
+                zifo, r, state, hs, states, dhs)),
+            "plain_ms": per_call_ms(
+                lambda: slstm_backward_ref(zifo, r, state, dhs), 1, reps=3),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+    for row, entries in out.items():
+        for key, e in entries.items():
+            lib = ("" if e["library_ms"] is None
+                   else f", library {e['library_ms']:.5f}")
+            print(f"  17 {row} {key}: {e['ms']:.5f} ms (bound "
+                  f"{e['bound_ms']:.5f}, {e['bound_by']}; plain "
+                  f"{e['plain_ms']:.4f}{lib})")
+    return out
+
+
+def run_tp(xcfg, glm_cfg, jamba_cfg, dev, card: str,
+           b16: dict | None = None,
+           reduced: dict | None = None) -> tuple[dict, dict]:
+    """Phase 17: ``glm_cfg`` (chatglm3-6b) decoded on a (1, TP_RANKS)
+    ``tp`` mesh (17a), ``xcfg`` (xlstm-125m) trained on a TP_TRAIN_MESH
+    mesh against 16b's one-rank runs ``b16`` (run here when ``None``;
+    17b), ``jamba_cfg`` at one period under ``tp=ep`` (17c), chatglm3-6b
+    cut to TP_SP[0] layers under ``sp_act`` (17d), then rows 9, 9b, 10
+    and 10b timed at the split shapes.  Returns the ranks' launches and
+    the timings."""
+    t0 = time.perf_counter()
+    print(card)
+    torch.cuda.empty_cache()
+    base = {"device": dev.type, **({"reduced": True, **reduced}
+                                   if reduced else {})}
+    glm = dataclasses.replace(glm_cfg, gather_impl="onehot",
+                              param_dtype="float32")
+    jamba = dataclasses.replace(jamba_cfg, param_dtype="float32",
+                                capacity_factor=jamba_cfg.n_experts
+                                / jamba_cfg.top_k)
+    sp_cfg = dataclasses.replace(glm, n_layers=TP_SP[0])
+    onehot = dataclasses.replace(xcfg, gather_impl="onehot")
+    with tempfile.TemporaryDirectory() as t1, \
+            tempfile.TemporaryDirectory() as t2:
+        d1, d2 = pathlib.Path(t1), pathlib.Path(t2)
+        print("phase 17: one rank's runs of 17a, 17c and 17d")
+        ref = tp_refs(glm, jamba, sp_cfg, dev, d1)
+        (d1 / "meta.json").write_text(json.dumps(dict(
+            base, world=TP_RANKS, glm=mesh_meta(glm, base),
+            jamba=mesh_meta(jamba, base), sp=mesh_meta(sp_cfg, base))))
+        print(f"phase 17a/c/d: {TP_RANKS} gloo ranks, (1, {TP_RANKS}) mesh")
+        recs = mesh_ranks("17acd", d1, TP_RANKS)
+        train = check_tp_train(onehot, dev, d2, base, b16)
+    one32 = ref["17a_float32"]
+    layers = glm.n_layers
+    for i, r in enumerate(recs):
+        a, a16 = r["17a_float32"], r["17a_bfloat16"]
+        per_step = statistics.median(a["collectives"])
+        print(f"  17a rank {i} float32: max|d| {a['max_abs_err']:.3e} "
+              f"(bound {a['bound']:.3e}); holds "
+              f"{a['held_bytes'] / 1e9:.2f} of {a['full_bytes'] / 1e9:.2f} "
+              f"GB of parameters ({a['held_bytes'] / a['full_bytes']:.3f}),"
+              f" cache {a['cache_bytes'] / 2**20:.2f} of "
+              f"{one32['cache_bytes'] / 2**20:.2f} MiB "
+              f"({a['cache_bytes'] / one32['cache_bytes']:.3f}); "
+              f"{per_step:g} collectives a decode step ({layers} layers); "
+              f"decode median {statistics.median(a['ms']):.2f} ms a step "
+              f"(one rank: {statistics.median(one32['ms']):.2f}); bf16 "
+              f"greedy tokens agree {a16['agreement']:.3f}, decode median "
+              f"{statistics.median(a16['ms']):.2f} ms (one rank: "
+              f"{statistics.median(ref['17a_bfloat16']['ms']):.2f})")
+        want9 = TP_PROMPTS * (1 + TP_DECODE)
+        if a["launches"].get("onehot_gather") != want9:
+            fail(f"17a: rank {i} launched row 9 {a['launches']} times, "
+                 f"not {want9}")
+        c = r["17c"]
+        print(f"  17c rank {i}: max|d| {c['max_abs_err']:.3e} (bound "
+              f"{c['bound']:.3e}); holds {c['held_bytes'] / 1e9:.2f} of "
+              f"{c['full_bytes'] / 1e9:.2f} GB; decode median "
+              f"{statistics.median(c['ms']):.2f} ms (one rank: "
+              f"{statistics.median(ref['17c']['ms']):.2f}), "
+              f"{statistics.median(c['collectives']):g} collectives a step")
+        s_ = r["17d"]
+        print(f"  17d rank {i}: logits max|d| {s_['max_abs_err']:.3e} "
+              f"(bound {s_['bound']:.3e}); loss {s_['loss']:.6f} (one rank "
+              f"{ref['17d']['loss']:.6f}), grad norm {s_['grad_norm']:.6f} "
+              f"(one rank {ref['17d']['grad_norm']:.6f}); gaps "
+              f"{s_['gaps']}; forward+backward {s_['step_s']:.3f} s (one "
+              f"rank {ref['17d']['step_s']:.3f})")
+    timings = time_split_kernels(xcfg, glm, dev)
+    phase_s = time.perf_counter() - t0
+    print(f"  phase 17 took {phase_s:.1f} s")
+    launches = {k: {"17b": [r["launches"][k]
+                            for r in train["bfloat16"]["ranks"]]}
+                for k in TP_KERNELS}
+    launches["onehot_gather"]["17a"] = [
+        r["17a_float32"]["launches"]["onehot_gather"] for r in recs]
+    print(json.dumps({"tp_detail": {
+        "card": card, "phase_s": phase_s, "one_rank": ref,
+        "ranks_17acd": recs, "train_17b": train,
+        "split_kernels": timings}}))
+    return launches, timings
+
+
+def split_rounding_run(cfg, dev, tmp: pathlib.Path, n: int = 2) -> list:
+    """MESH_TRAIN_STEPS steps of ``cfg`` on one rank from ``tmp``'s
+    batches, each ``out_proj`` product computed as the ``n`` partial sums
+    a ``tp`` split of its input dimension gives, each rounded to the
+    compute dtype and then added (xlstm-125m's only row-parallel
+    projection): one rank with the split's rounding and nothing else of
+    it.  Returns (loss, grad norm) a step."""
+    from repro_torch.kernels import slstm_ops
+    from repro_torch.models import init_model, layers, ssm
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+
+    def dense(params, name, x, compute_dtype=torch.bfloat16):
+        if name != "out_proj":
+            return layers.dense(params, name, x, compute_dtype)
+        w, x = params[name].to(compute_dtype), x.to(compute_dtype)
+        parts = [xi @ wi for xi, wi in zip(x.chunk(n, -1), w.chunk(n, 0))]
+        return functools.reduce(torch.add, parts)
+
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=10,
+                       total_steps=MESH_TRAIN_STEPS)
+    out = []
+    with patched(ssm, "dense", dense), patched(slstm_ops, "dense", dense):
+        model = init_model(cfg, seed=SEED, device=dev).requires_grad_(True)
+        opt = init_opt_state(model, ocfg)
+        step = make_train_step(cfg, ocfg)
+        for i in range(MESH_TRAIN_STEPS):
+            b = {k: torch.from_numpy(v).to(dev)
+                 for k, v in np.load(tmp / f"batch{i}.npz").items()}
+            model, opt, m = step(model, opt, b)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+    del model, opt
+    sync(dev)
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_tp_train(cfg, dev, tmp: pathlib.Path, base: dict,
+                   b16: dict | None) -> dict:
+    """17b: ``cfg`` (xlstm-125m, ``onehot``) trained MESH_TRAIN_STEPS
+    steps on the TP_TRAIN_MESH mesh of gloo ranks, in float32 and in
+    bfloat16, against one rank (``b16``: 16b's bfloat16 runs, else run
+    here), each rank launching rows 9, 9b, 10 and 10b at its split shapes
+    and holding them there to their plain versions.
+
+    float32 is held to 16b's bounds.  In bfloat16 the split rounds each
+    row-parallel partial sum to bfloat16 before the all-reduce, and at
+    this initialisation the model's bfloat16 gradients follow their
+    rounding, so each step's loss and gradient norm are held to 16b's
+    bounds or to twice the gap of one rank that rounds its ``out_proj``
+    partial sums the same way (:func:`split_rounding_run`), where that
+    is larger."""
+    n_ranks = TP_TRAIN_MESH[0] * TP_TRAIN_MESH[1]
+    n_slstm = sum(k == "slstm" for k in cfg.block_pattern) * cfg.n_periods
+    per_step = {"onehot_gather": 1, "onehot_gather_backward": 1,
+                "slstm": 2 * n_slstm, "slstm_backward": n_slstm}
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, param_dtype=dtype)
+        d = tmp / dtype
+        d.mkdir()
+        if dtype == "bfloat16" and b16 is not None:
+            one, later = b16["one_rank"], b16["bounds"]
+            from repro_torch.data import TokenDataset
+
+            B, S = TRAIN_SHAPE
+            ds = TokenDataset(c.vocab, S, B, device=str(dev))
+            for i in range(MESH_TRAIN_STEPS):
+                np.savez(d / f"batch{i}.npz", **{
+                    k: v.cpu().numpy() for k, v in ds.batch(i).items()})
+        else:
+            one, _, _, later = one_rank_train(c, dev, d)
+        (d / "meta.json").write_text(json.dumps(dict(
+            mesh_meta(c, base), world=n_ranks, mesh=list(TP_TRAIN_MESH),
+            split_checks=True)))
+        print(f"phase 17b: {c.name} ({dtype}, onehot) on {n_ranks} gloo "
+              f"ranks, mesh {TP_TRAIN_MESH}, {MESH_TRAIN_STEPS} steps of "
+              f"{TRAIN_SHAPE[0]} x {TRAIN_SHAPE[1]}")
+        recs = mesh_ranks("17b", d, n_ranks)
+        r0 = recs[0]
+        gaps = [abs(r0["losses"][i] - one[i][0]) / abs(one[i][0])
+                for i in range(MESH_TRAIN_STEPS)]
+        gn_gap = abs(r0["grad_norms"][0] - one[0][1]) / one[0][1]
+        gn_bound = MESH_TRAIN_RTOL[0]
+        bounds = [MESH_TRAIN_RTOL[0]] + later[1:]
+        emulated = None
+        if dtype == "bfloat16":
+            emulated = split_rounding_run(c, dev, d, TP_TRAIN_MESH[1])
+            drift = [abs(emulated[i][0] - one[i][0]) / abs(one[i][0])
+                     for i in range(MESH_TRAIN_STEPS)]
+            gn_bound = max(gn_bound,
+                           2 * abs(emulated[0][1] - one[0][1]) / one[0][1])
+            bounds = [max(b, 2 * g) for b, g in zip(bounds, drift)]
+        bad = [i for i, r in enumerate(recs)
+               if any(r["launches"].get(k, 0) != v * MESH_TRAIN_STEPS
+                      for k, v in per_step.items())]
+        if any(g > b for g, b in zip(gaps, bounds)) or gn_gap > gn_bound \
+                or bad or any(r["losses"] != r0["losses"] for r in recs):
+            fail(f"17b {dtype}: loss gaps {gaps} (bounds {bounds}), "
+                 f"grad-norm gap {gn_gap} (bound {gn_bound}), ranks with "
+                 f"launches off {per_step} a step: {bad}")
+        for i, r in enumerate(recs):
+            share = {k: r["held_bytes"][k] / r["full_bytes"][k]
+                     for k in r["held_bytes"]}
+            print(f"  17b {dtype} rank {i}: median "
+                  f"{statistics.median(r['step_s'][1:]):.4f} s a step; "
+                  f"launches { {k: r['launches'][k] for k in per_step} }; "
+                  f"collectives a step {r['collectives_per_step']}; holds "
+                  f"parameters {share['p/']:.3f}, m {share['m/']:.3f}, v "
+                  f"{share['v/']:.3f}; at the split shapes "
+                  + ", ".join(f"{k} {v}"
+                              for k, v in r["split_checks"].items()))
+        print(f"  17b {dtype}: loss gaps {['%.2e' % g for g in gaps]} "
+              f"(bounds {['%.2e' % b for b in bounds]}), grad norm "
+              f"{gn_gap:.2e} (bound {gn_bound:.2e}); one rank "
+              f"{statistics.median(x[2] for x in one[1:]):.4f} s a step")
+        if emulated is not None:
+            print(f"  17b {dtype}: one rank rounding its out_proj partial "
+                  f"sums as the split does: losses "
+                  f"{['%.6f' % x[0] for x in emulated]} (one rank "
+                  f"{['%.6f' % x[0] for x in one]}, the split "
+                  f"{['%.6f' % x for x in r0['losses']]}); step 0's grad "
+                  f"norm {emulated[0][1]:.4f} (one rank {one[0][1]:.4f}, "
+                  f"the split {r0['grad_norms'][0]:.4f})")
+        out[dtype] = {"ranks": [{k: v for k, v in r.items()
+                                 if k != "blocks"} for r in recs],
+                      "one_rank": one, "split_rounding": emulated,
+                      "loss_gaps": gaps,
+                      "bounds": bounds, "grad_norm_gap": gn_gap,
+                      "grad_norm_bound": gn_bound}
+    return out
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA card")
@@ -4031,12 +4654,24 @@ def main() -> int:
         if entry["name"] in train_launches:
             entry["train_launches"] = train_launches[entry["name"]]
     record["kernels"] += train
-    mesh = run_mesh(ARCHS[LM_ARCH], ARCHS[GLM_ARCH],
-                    dataclasses.replace(ARCHS[EP_ARCH], n_layers=EP_DEPTH),
-                    dev, card, launcher15b)
+    mesh, b16 = run_mesh(ARCHS[LM_ARCH], ARCHS[GLM_ARCH],
+                         dataclasses.replace(ARCHS[EP_ARCH],
+                                             n_layers=EP_DEPTH),
+                         dev, card, launcher15b)
     for entry in record["kernels"]:
         if entry["name"] in mesh:
             entry["mesh_launches"] = mesh[entry["name"]]
+    tp_launches, tp_times = run_tp(
+        ARCHS[LM_ARCH], ARCHS[GLM_ARCH],
+        dataclasses.replace(ARCHS[JAMBA_ARCH], n_layers=JAMBA_DEPTH), dev,
+        card, b16)
+    rows = {"onehot_gather": "row9", "onehot_gather_backward": "row9b",
+            "slstm": "row10", "slstm_backward": "row10b"}
+    for entry in record["kernels"]:
+        if entry["name"] in tp_launches:
+            entry["tp_launches"] = tp_launches[entry["name"]]
+            entry["tp_split_shapes"] = tp_times[rows[entry["name"]]]
+    print(f"every phase passed in {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,12 @@ axes and ZeRO-3 (FSDP) over the ``fsdp`` axes.
   over the mesh dimensions the batch is split on (the ``Partial()``
   placements of :func:`grad_placements`) and cut back to the rank's
   block.  No DTensor reaches the model's code or a hand-written kernel.
+* Under tensor parallelism (:mod:`repro_torch.dist.tp`) :func:`gather`
+  keeps a ``tp``-split parameter's block (``keep_axes=rules.tp``: the
+  gradient is the rank's own block), gathers a fused one over ``tp`` too
+  with its gradient summed there (``sum_axes=rules.tp``), and under
+  ``sp_act`` sums a norm's gradient over the sequence split
+  (``sum_axes=rules.sp_act``; :func:`grad_placements`).
 * :func:`batch_block` / :func:`gather_rows` split the batch over the
   batch axes and put rows back together; :func:`reduced` is an
   all-reduce whose gradient is the local one, for a global loss.
@@ -48,7 +54,7 @@ __all__ = ["COUNTS", "active", "batch_dims", "axis_dims", "place",
            "is_placed"]
 
 # Collectives issued through this module, by kind (reset by callers).
-COUNTS = {"all_gather": 0, "all_reduce": 0}
+COUNTS = {"all_gather": 0, "all_reduce": 0, "reduce_scatter": 0}
 
 
 def active():

@@ -12,6 +12,11 @@ When the table requires a gradient the gather runs as a
 onehot(ids)^T d out``, is the backward kernel on the card (row 9b,
 :func:`.gather.launch_onehot_gather_grad`) and its plain version
 :func:`.gather_ref.gather_grad_ref` on the CPU.
+
+``offset`` makes ``table`` rows ``[offset, offset + V)`` of a larger
+vocabulary (a tensor-parallel rank's block, :mod:`repro_torch.dist.tp`):
+the kernels see ``ids - offset``, whose ids outside the block give zero
+rows in the forward and are skipped in the backward.
 """
 
 from __future__ import annotations
@@ -24,15 +29,18 @@ from .gather_ref import gather_grad_ref, gather_ref
 __all__ = ["cuda_onehot_gather"]
 
 
-def cuda_onehot_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` with zero rows for ids outside ``[0, V)``; returns
-    ``ids.shape + (D,)`` in the table's dtype."""
+def cuda_onehot_gather(table: torch.Tensor, ids: torch.Tensor,
+                       offset: int = 0) -> torch.Tensor:
+    """``table[ids - offset]`` with zero rows for ids outside ``[offset,
+    offset + V)``; returns ``ids.shape + (D,)`` in the table's dtype."""
     if table.ndim != 2:
         raise ValueError(f"table must be (V, D); got {tuple(table.shape)}")
     if table.device.type not in ("cuda", "cpu"):
         raise ValueError(f"table lies on {table.device}: the gather runs on "
                          f"a CUDA device or, as its plain version, the CPU")
     flat = ids.reshape(-1).to(device=table.device, dtype=torch.int64)
+    if offset:
+        flat = flat - offset
     if torch.is_grad_enabled() and table.requires_grad:
         out = _OnehotGather.apply(table, flat)
     elif table.is_cuda:

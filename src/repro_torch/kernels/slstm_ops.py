@@ -97,10 +97,12 @@ def fused_slstm_forward(params, cfg, x: torch.Tensor, *,
     ``slstm_forward``.  The gate projection and the out-projection are
     PyTorch matrix products; only the recurrence runs in the kernel (one
     read of the gates, one write of the hidden states).  With
-    ``return_state`` also returns the final ``(4, B, di)`` state."""
+    ``return_state`` also returns the final ``(4, B, di)`` state.  Under
+    a tensor-parallel split ``params`` holds a rank's blocks (``zifo``
+    cut gate by gate, :mod:`repro_torch.dist.tp`): ``di`` is the rank's
+    units, and the recurrence, diagonal, runs on those alone."""
     B, S, _ = x.shape
-    di = cfg.d_inner
-    zifo = dense(params, "zifo", x, dtype).float().reshape(B, S, 4, di)
+    zifo = dense(params, "zifo", x, dtype).float().reshape(B, S, 4, -1)
     hs, final = slstm_recurrence(zifo, params["r_zifo"], state)
     out = dense(params, "out_proj", hs.to(dtype), dtype)
     if return_state:

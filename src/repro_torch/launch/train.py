@@ -47,17 +47,25 @@ from .mesh import init_world, make_local_mesh, make_production_mesh
 
 
 def realised(mesh, rules) -> str:
-    """Which logical axes the mesh splits, and which the port keeps
-    whole: activations over ``tp``/``sp_act`` (ROADMAP item 8c)."""
+    """Which logical axes the mesh splits: ``tp`` splits the heads,
+    channels, FFN columns and vocabulary, ``sp_act`` the residual stream
+    along the sequence where it lies on ``tp``'s mesh dimensions (else
+    the stream stays whole; :mod:`repro_torch.dist.tp`)."""
     out = []
     for ax in ("batch", "fsdp", "tp", "ep", "sp", "sp_act"):
         spec = logical_to_spec((ax,), rules, mesh)[0]
         axes = () if spec is None else (
             spec if isinstance(spec, tuple) else (spec,))
-        if not fsdp.axis_dims(mesh, axes):
+        dims = fsdp.axis_dims(mesh, axes)
+        if not dims:
             continue
-        note = ("parameters only; activations whole (item 8c)"
-                if ax in ("tp", "sp_act") else "split")
+        note = "split"
+        if ax == "tp":
+            note = "split: heads, channels, FFN columns, vocabulary"
+        elif ax == "sp_act":
+            note = ("split: the stream along the sequence"
+                    if dims == fsdp.axis_dims(mesh, rules.tp)
+                    else "stream whole: not on tp's mesh dimensions")
         out.append(f"{ax}->{'x'.join(axes)} ({note})")
     return ", ".join(out) or "none (one rank)"
 

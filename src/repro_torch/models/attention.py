@@ -21,6 +21,12 @@ sequence-parallel decode (``_decode_attend_sp``) runs only under one, so
 neither has a counterpart here (ROADMAP Queue 1, item 8).  The port
 writes no attention kernel: the reference's attention is jnp code, not a
 Pallas kernel.
+
+Under a tensor-parallel split (:mod:`repro_torch.dist.tp`) the
+functions take a rank's blocks of ``wq``/``wk``/``wv`` and ``wo`` and
+compute its query heads and the KV heads those read (the head counts
+come from the weights' widths, the cache's from :func:`tp.local_kv`);
+``wo``'s output is the rank's partial sum, which the block reduces.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..dist import fsdp
+from ..dist import fsdp, tp
 from .layers import Params, dense, init_dense, rope_rotate, rope_tables
 
 __all__ = ["init_attention", "attention_train", "attention_decode",
@@ -62,12 +68,14 @@ def _rope_one(t: torch.Tensor, positions, cfg) -> torch.Tensor:
 
 
 def _qkv(params, cfg, xq, xkv, positions, kv_positions, dtype):
+    """Rotated queries and keys, and values, ``(B, S, heads, hd)``: the
+    heads this rank's weights hold (all off a split)."""
     B, S = xq.shape[:2]
     T = xkv.shape[1]
     hd = cfg.hd
-    q = dense(params, "wq", xq, dtype).reshape(B, S, cfg.n_heads, hd)
-    k = dense(params, "wk", xkv, dtype).reshape(B, T, cfg.n_kv_heads, hd)
-    v = dense(params, "wv", xkv, dtype).reshape(B, T, cfg.n_kv_heads, hd)
+    q = dense(params, "wq", xq, dtype).reshape(B, S, -1, hd)
+    k = dense(params, "wk", xkv, dtype).reshape(B, T, -1, hd)
+    v = dense(params, "wv", xkv, dtype).reshape(B, T, -1, hd)
     return (_rope_one(q, positions, cfg), _rope_one(k, kv_positions, cfg),
             v)
 
@@ -156,9 +164,9 @@ def attention_train(params, cfg, x, positions, *, causal: bool = True,
     if xkv is None:
         xkv, kv_positions = x, positions
     q, k, v = _qkv(params, cfg, x, xkv, positions, kv_positions, dtype)
-    out = _attend(cfg, _group(q, cfg.n_kv_heads), k, v, causal)
+    out = _attend(cfg, _group(q, k.shape[2]), k, v, causal)
     B, S = x.shape[:2]
-    y = dense(params, "wo", out.reshape(B, S, cfg.n_heads * cfg.hd), dtype)
+    y = dense(params, "wo", out.reshape(B, S, -1), dtype)
     if return_kv:
         return y, (k, v)
     return y
@@ -173,8 +181,8 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
     """The cache of one attention block: ``k``/``v`` ``(batch, max_len,
     KV, hd)`` in ``dtype``, or with ``cfg.kv_cache_dtype == "int8"`` int8
     codes and bfloat16 scales ``k_s``/``v_s`` ``(batch, max_len, KV,
-    1)``."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    1)``; ``KV`` this rank's KV heads under a tensor-parallel split."""
+    shape = (batch, max_len, tp.local_kv(cfg), cfg.hd)
     if cfg.kv_cache_dtype == "int8":
         sshape = shape[:-1] + (1,)
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -291,12 +299,11 @@ def attention_decode(params, cfg, x, cache: dict, index, *,
     if cfg.rope == "mrope":
         positions = positions.expand(3, B, 1)
     q, k_new, v_new = _qkv(params, cfg, x, x, positions, positions, dtype)
-    sp = _decode_attend_sp(cfg, _group(q, cfg.n_kv_heads), k_new, v_new,
+    sp = _decode_attend_sp(cfg, _group(q, k_new.shape[2]), k_new, v_new,
                            cache, index, dtype)
     if sp is not None:
         out, new_cache = sp
-        out = out.reshape(B, 1, cfg.n_heads * cfg.hd)
-        return dense(params, "wo", out, dtype), new_cache
+        return dense(params, "wo", out.reshape(B, 1, -1), dtype), new_cache
     if cfg.kv_cache_dtype == "int8":
         kq, ks = _kv_quant(k_new)
         vq, vs = _kv_quant(v_new)
@@ -310,9 +317,9 @@ def attention_decode(params, cfg, x, cache: dict, index, *,
         k = _update(cache["k"], k_new, index)
         v = _update(cache["v"], v_new, index)
         new_cache = {"k": k, "v": v}
-    out = _attend(cfg, _group(q, cfg.n_kv_heads), k, v, True,
+    out = _attend(cfg, _group(q, k.shape[2]), k, v, True,
                   q_offset=int(index))
-    y = dense(params, "wo", out.reshape(B, 1, cfg.n_heads * cfg.hd), dtype)
+    y = dense(params, "wo", out.reshape(B, 1, -1), dtype)
     return y, new_cache
 
 
@@ -320,7 +327,6 @@ def attention_cross_step(params, cfg, x, k, v, *, dtype=torch.bfloat16):
     """Decode-time cross-attention against precomputed encoder keys and
     values (dense, not causal)."""
     B = x.shape[0]
-    q = dense(params, "wq", x, dtype).reshape(B, 1, cfg.n_heads, cfg.hd)
-    out = _dense_attention(_group(q, cfg.n_kv_heads), k, v, causal=False)
-    return dense(params, "wo", out.reshape(B, 1, cfg.n_heads * cfg.hd),
-                 dtype)
+    q = dense(params, "wq", x, dtype).reshape(B, 1, -1, cfg.hd)
+    out = _dense_attention(_group(q, k.shape[2]), k, v, causal=False)
+    return dense(params, "wo", out.reshape(B, 1, -1), dtype)

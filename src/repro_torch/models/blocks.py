@@ -12,6 +12,14 @@ else the MLP (``d_ff > 0``).  Three entry points, as the reference's:
 
 Without MoE the aux loss is ``None`` (the reference's is a zero; the
 model sums only the MoE layers', and a decode step makes none).
+
+Under a tensor-parallel split (:mod:`repro_torch.dist.tp`) each
+sub-layer's input enters through :func:`tp.enter` and its output
+leaves through :func:`tp.leave`: the mixers, the cross-attention and
+the MLP are split (their outputs are partial sums), the MoE layer and,
+under flash-decoding, the attention are whole.  Under ``sp_act`` the
+full-sequence paths take and return the stream as this rank's block of
+the sequence; a decode step's stream is whole.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..dist import tp
 from .attention import (_kv_quant, attention_cross_step, attention_decode,
                         attention_train, init_attention, init_kv_cache)
 from .layers import Params, activation, apply_norm, dense, init_dense, \
@@ -68,17 +77,29 @@ def mlp_forward(params, cfg, x, dtype) -> torch.Tensor:
     return dense(params, "w_down", h, dtype)
 
 
-def _ffn_part(params, cfg, x, use_moe: bool, moe_impl: str, dtype):
+def _split_sub(s, kind: str) -> bool:
+    """Whether a sub-layer of ``kind`` is split under ``s`` (module
+    docstring)."""
+    if s is None or kind == "moe":
+        return False
+    if kind in ("attn", "cross"):
+        return tp.attention_split(s) is not None
+    return True
+
+
+def _ffn_part(params, cfg, x, use_moe: bool, moe_impl: str, dtype,
+              s=None, seq: bool = False):
     """The FFN sub-block: (x, MoE aux loss or None)."""
     aux = None
     if use_moe:
-        h = apply_norm(params, "ln2", x, cfg.norm)
+        h = tp.enter(apply_norm(params, "ln2", x, cfg.norm), s, False, seq)
         y, aux = moe_forward(params["moe"], cfg, h, impl=moe_impl,
                              dtype=dtype)
-        x = x + y
+        x = x + tp.leave(y, s, False, seq)
     elif cfg.d_ff:
-        h = apply_norm(params, "ln2", x, cfg.norm)
-        x = x + mlp_forward(params["mlp"], cfg, h, dtype)
+        h = tp.enter(apply_norm(params, "ln2", x, cfg.norm), s, True, seq)
+        x = x + tp.leave(mlp_forward(params["mlp"], cfg, h, dtype), s,
+                         True, seq)
     return x, aux
 
 
@@ -119,7 +140,7 @@ def init_block_cache(cfg, kind: str, batch: int, max_len: int,
     else:
         cache = _MIXERS[kind][1](cfg, batch, device=device)
     if cross:
-        shape = (batch, enc_len, cfg.n_kv_heads, cfg.hd)
+        shape = (batch, enc_len, tp.local_kv(cfg), cfg.hd)
         cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
     return cache
@@ -130,12 +151,24 @@ def init_block_cache(cfg, kind: str, batch: int, max_len: int,
 # ----------------------------------------------------------------------
 
 def _cross(params, cfg, x, positions, enc_out, enc_positions, dtype,
-           return_kv: bool = False):
-    h = apply_norm(params, "lnx", x, cfg.norm)
-    return attention_train(params["cross"], cfg, h, positions,
-                           causal=False, xkv=enc_out,
-                           kv_positions=enc_positions, dtype=dtype,
-                           return_kv=return_kv)
+           s=None, seq: bool = False):
+    """The cross-attention sub-block's output into the stream, and the
+    (rank's) encoder keys and values."""
+    sub = _split_sub(s, "cross")
+    h = tp.enter(apply_norm(params, "lnx", x, cfg.norm), s, sub, seq)
+    y, kv = attention_train(params["cross"], cfg, h, positions,
+                            causal=False,
+                            xkv=tp.enter(enc_out, s, sub, seq),
+                            kv_positions=enc_positions, dtype=dtype,
+                            return_kv=True)
+    return tp.leave(y, s, sub, seq), kv
+
+
+def _mixer_in(params, cfg, kind: str, x, s, seq: bool):
+    """The mixer's input, and whether it is split."""
+    sub = _split_sub(s, kind)
+    return tp.enter(apply_norm(params, "ln1", x, cfg.norm), s, sub,
+                    seq), sub
 
 
 def block_forward(params, cfg, kind: str, use_moe: bool, x, positions=None,
@@ -144,18 +177,20 @@ def block_forward(params, cfg, kind: str, use_moe: bool, x, positions=None,
                   dtype=torch.bfloat16):
     """Full sequence: (x, aux loss)."""
     _check(kind)
-    h = apply_norm(params, "ln1", x, cfg.norm)
+    s = tp.split()
+    seq = s is not None and s.sp
+    h, sub = _mixer_in(params, cfg, kind, x, s, seq)
     m = params["mixer"]
     if kind == "attn":
         mix = attention_train(m, cfg, h, positions, causal=causal,
                               dtype=dtype)
     else:
         mix = _MIXERS[kind][2](m, cfg, h, dtype=dtype)
-    x = x + mix
+    x = x + tp.leave(mix, s, sub, seq)
     if cross:
         x = x + _cross(params, cfg, x, positions, enc_out, enc_positions,
-                       dtype)
-    return _ffn_part(params, cfg, x, use_moe, moe_impl, dtype)
+                       dtype, s, seq)[0]
+    return _ffn_part(params, cfg, x, use_moe, moe_impl, dtype, s, seq)
 
 
 def block_prefill(params, cfg, kind: str, use_moe: bool, x, positions=None,
@@ -166,11 +201,13 @@ def block_prefill(params, cfg, kind: str, use_moe: bool, x, positions=None,
     attention block's ``max_len`` positions; the rest are zeros): (x,
     cache, aux loss)."""
     _check(kind)
-    S = x.shape[1]
+    s = tp.split()
+    seq = s is not None and s.sp
+    h, sub = _mixer_in(params, cfg, kind, x, s, seq)
+    S = h.shape[1]
     if kind == "attn" and max_len < S:
         raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
                          f"max_len={max_len}")
-    h = apply_norm(params, "ln1", x, cfg.norm)
     m = params["mixer"]
     if kind == "attn":
         mix, (k, v) = attention_train(m, cfg, h, positions, causal=True,
@@ -187,13 +224,13 @@ def block_prefill(params, cfg, kind: str, use_moe: bool, x, positions=None,
     else:
         mix, cache = _MIXERS[kind][2](m, cfg, h, dtype=dtype,
                                       return_state=True)
-    x = x + mix
+    x = x + tp.leave(mix, s, sub, seq)
     if cross:
         y, (ck, cv) = _cross(params, cfg, x, positions, enc_out,
-                             enc_positions, dtype, return_kv=True)
+                             enc_positions, dtype, s, seq)
         x = x + y
         cache = dict(cache, cross_k=ck.to(dtype), cross_v=cv.to(dtype))
-    x, aux = _ffn_part(params, cfg, x, use_moe, moe_impl, dtype)
+    x, aux = _ffn_part(params, cfg, x, use_moe, moe_impl, dtype, s, seq)
     return x, cache, aux
 
 
@@ -204,7 +241,8 @@ def block_step(params, cfg, kind: str, use_moe: bool, x, cache: dict,
     is the attention kind's (the recurrent kinds carry it in their
     state).  Returns (x, new cache)."""
     _check(kind)
-    h = apply_norm(params, "ln1", x, cfg.norm)
+    s = tp.split()
+    h, sub = _mixer_in(params, cfg, kind, x, s, False)
     m = params["mixer"]
     mix_cache = {k: v for k, v in cache.items()
                  if not k.startswith("cross_")}
@@ -213,13 +251,14 @@ def block_step(params, cfg, kind: str, use_moe: bool, x, cache: dict,
                                           dtype=dtype)
     else:
         mix, new_cache = _MIXERS[kind][3](m, cfg, h, mix_cache, dtype=dtype)
-    x = x + mix
+    x = x + tp.leave(mix, s, sub, False)
     if cross:
-        h = apply_norm(params, "lnx", x, cfg.norm)
-        x = x + attention_cross_step(params["cross"], cfg, h,
-                                     cache["cross_k"], cache["cross_v"],
-                                     dtype=dtype)
+        sub = _split_sub(s, "cross")
+        h = tp.enter(apply_norm(params, "lnx", x, cfg.norm), s, sub, False)
+        x = x + tp.leave(attention_cross_step(
+            params["cross"], cfg, h, cache["cross_k"], cache["cross_v"],
+            dtype=dtype), s, sub, False)
         new_cache = dict(new_cache, cross_k=cache["cross_k"],
                          cross_v=cache["cross_v"])
-    x, _ = _ffn_part(params, cfg, x, use_moe, moe_impl, dtype)
+    x, _ = _ffn_part(params, cfg, x, use_moe, moe_impl, dtype, s)
     return x, new_cache

@@ -9,6 +9,11 @@ on tensors, and also take a nested dict of tensors with the same keys
 (what :mod:`repro_torch.models.model` hands them under a mesh).  Each
 parameter records the reference's logical sharding axes
 (:attr:`Params.specs`; :mod:`repro_torch.dist.sharding`).
+
+Under a tensor-parallel split (:mod:`repro_torch.dist.tp`) the model
+hands these functions each rank's blocks: :func:`embed_lookup` gathers
+from its block of the vocabulary and reduces the rows over ``tp``,
+:func:`unembed` returns its block of the logits.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.gather_ops import gather as gather_rows
+from ..dist import tp
 
 __all__ = ["DTYPES", "Params", "init_dense", "dense", "init_norm",
            "apply_norm", "init_embed", "embed_lookup", "unembed",
@@ -46,12 +52,16 @@ class Params(nn.Module):
     wants; ``requires_grad_(True)`` on the model makes them trainable, as
     the training launcher and :func:`repro_torch.training.make_train_step`
     do.
+
+    ``place`` (``(tensor, logical axes) -> tensor``) replaces each
+    parameter as soon as it is drawn, e.g. by its block on a mesh
+    (:func:`repro_torch.models.model.init_model` with ``mesh=``).
     """
 
     def __init__(self, dtype: torch.dtype, device: torch.device,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, place=None):
         super().__init__()
-        self._init = (dtype, device, generator)
+        self._init = (dtype, device, generator, place)
         self.specs: dict[str, tuple] = {}
 
     def sub(self, name: str) -> "Params":
@@ -67,7 +77,7 @@ class Params(nn.Module):
         :attr:`specs`."""
         self.specs[name] = (tuple(logical_axes) if logical_axes is not None
                             else ("null",) * len(shape))
-        dtype, device, generator = self._init
+        dtype, device, generator, place = self._init
         if init == "zeros":
             val = torch.zeros(shape, dtype=dtype, device=device)
         elif init == "ones":
@@ -80,6 +90,8 @@ class Params(nn.Module):
             val = (torch.randn(shape, generator=generator,
                                dtype=torch.float32, device=device)
                    * scale).to(dtype)
+        if place is not None:
+            val = place(val, self.specs[name])
         self.register_parameter(name, nn.Parameter(val, requires_grad=False))
         return val
 
@@ -148,23 +160,42 @@ def init_embed(p: Params, vocab: int, d: int, tie: bool):
 
 
 def embed_lookup(params, tokens: torch.Tensor, impl: str = "take",
-                 compute_dtype=torch.bfloat16) -> torch.Tensor:
+                 compute_dtype=torch.bfloat16, *,
+                 seq: bool = False) -> torch.Tensor:
     """Token -> vector via the configured gather strategy
     (:mod:`repro_torch.core.gather_ops`), scaled by ``sqrt(d)``.
 
     The scale is a tensor of the compute dtype, as the reference's
     ``jnp.asarray(math.sqrt(d), compute_dtype)``: in bfloat16 it is
     rounded before it multiplies (a Python float would multiply
-    unrounded).  It stays a host scalar, so no copy to the card."""
+    unrounded).  It stays a host scalar, so no copy to the card.
+
+    Under a tensor-parallel split ``params["embed"]`` is this rank's
+    block of the vocabulary; the rows (each token's from one rank, zeros
+    from the others, so the sum is exact) are all-reduced over ``tp``,
+    or with ``seq`` reduce-scattered to this rank's block of the
+    sequence."""
     table = params["embed"]
     d = table.shape[1]
-    out = gather_rows(table, tokens, impl=impl)
+    s = tp.split()
+    if s is None:
+        out = gather_rows(table, tokens, impl=impl)
+    else:
+        out = tp.leave(gather_rows(table, tokens, impl=impl,
+                                   offset=s.r * table.shape[0],
+                                   vocab=s.n * table.shape[0]),
+                       s, True, seq)
     return out.to(compute_dtype) * torch.tensor(math.sqrt(d),
                                                 dtype=compute_dtype)
 
 
 def unembed(params, x: torch.Tensor, tie: bool,
-            compute_dtype=torch.bfloat16) -> torch.Tensor:
+            compute_dtype=torch.bfloat16, *, seq: bool = False
+            ) -> torch.Tensor:
+    """Float32 logits; under a tensor-parallel split this rank's block of
+    the vocabulary (column-parallel; with ``seq`` the stream ``x`` is
+    this rank's block of the sequence, gathered first)."""
+    x = tp.enter(x, tp.split(), True, seq)
     if tie:
         w = params["embed"].to(compute_dtype).T
     else:

@@ -57,10 +57,19 @@ parallel over the ``batch`` axes with the parameters placed by
 * the cache is this rank's: its batch rows and, under flash-decoding
   (``rules.flash_decode`` with ``sp`` axes), its slice of the positions
   (:func:`init_cache`, :func:`prefill`, :func:`shard_cache`);
-* activations are replicated over the ``tp`` and ``sp_act`` axes: the
-  reference's ``shard_constraint`` calls on activations are layout hints
-  that change no value, and the port computes those activations whole
-  on every rank of the ``model`` axis (ROADMAP item 8c splits them).
+* under a tensor-parallel split (``tp`` on mesh dimensions above size
+  1; :mod:`repro_torch.dist.tp`) each rank computes only its heads,
+  channels, FFN columns and block of the vocabulary: :class:`_Gathered`
+  reads each ``tp``-split parameter as the rank's block (the fused
+  projections part by part), the blocks enter and leave each sub-layer
+  through the Megatron operators, the loss is the vocabulary-parallel
+  cross-entropy, and :func:`forward`, :func:`prefill` and
+  :func:`decode_step` gather the vocabulary blocks; the cache holds the
+  rank's KV heads, channels and units;
+* where ``rules.sp_act`` resolves to ``tp``'s mesh dimensions, the
+  residual stream of the full-sequence paths is the rank's block of the
+  sequence between sub-layers (the reference's ``shard_constraint`` on
+  ``sp_act``), and the norms' gradients are summed over it.
 
 A mesh of one rank runs the one-device code exactly.
 """
@@ -76,7 +85,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..dist import fsdp
+from ..dist import fsdp, tp
+from ..dist.sharding import current, sharding_context
 from .attention import sp_shards
 from .blocks import (block_forward, block_prefill, block_step, init_block,
                      init_block_cache)
@@ -113,8 +123,8 @@ class GenericLM(Params):
     and ``norm_enc_*``."""
 
     def __init__(self, cfg, *, device: torch.device,
-                 generator: torch.Generator | None):
-        super().__init__(compute_dtype(cfg), device, generator)
+                 generator: torch.Generator | None, place=None):
+        super().__init__(compute_dtype(cfg), device, generator, place)
         self.cfg = cfg
         init_embed(self, cfg.vocab, cfg.d_model, cfg.tie_embeddings)
         init_norm(self, "norm_f", cfg.d_model, cfg.norm)
@@ -145,14 +155,22 @@ class GenericLM(Params):
 
 def init_model(cfg, *, seed: int = 0,
                generator: torch.Generator | None = None,
-               device="cuda") -> GenericLM:
+               device="cuda", mesh=None, rules=None) -> GenericLM:
     """A :class:`GenericLM` on ``device`` (the card by default), drawn
     from ``generator`` or, without one, from a generator seeded with
-    ``seed``."""
+    ``seed``.  With a ``mesh`` of more than one rank (and its ``rules``)
+    each parameter is placed as soon as it is drawn
+    (:func:`repro_torch.dist.fsdp.place`): the values of
+    :func:`repro_torch.dist.place_params` after a whole draw, with at
+    most one whole parameter held at a time."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
-    return GenericLM(cfg, device=dev, generator=generator)
+    place = None
+    if mesh is not None and mesh.size() > 1:
+        def place(t, axes):
+            return fsdp.place(t, axes, mesh, rules)
+    return GenericLM(cfg, device=dev, generator=generator, place=place)
 
 
 def _specs_of(model: nn.Module) -> dict:
@@ -206,28 +224,29 @@ def _on(params: GenericLM, x, dtype=torch.int64) -> torch.Tensor:
 class _Gathered:
     """A placed :class:`GenericLM` as the model's code reads it under a
     mesh: its top-level parameters gathered at once, each layer when it
-    is read (inside its period's remat region), as nested dicts of full
+    is read (inside its period's remat region), as nested dicts of
     tensors.  Under expert parallelism a MoE layer keeps its own experts
     only, and its router's gradient is summed over the ``ep`` axes (each
-    rank's covers its experts)."""
+    rank's covers its experts).  Under a tensor-parallel split each
+    parameter is read as :func:`repro_torch.dist.tp.read` gives it (the
+    rank's block; ``seq``: the stream is split along the sequence)."""
 
-    def __init__(self, model: GenericLM, mesh, rules, ep: bool):
+    def __init__(self, model: GenericLM, mesh, rules, ep: bool,
+                 seq: bool = False):
+        cfg = model.cfg
         self.device = model.device
-        self._at = (mesh, rules, ep)
-        self._top = {n: fsdp.gather(p, mesh, rules)
-                     for n, p in model.named_parameters(recurse=False)}
-        self.layers = _LazyLayers(model.layers, self._full)
-        if model.cfg.enc_dec:
-            self.enc_layers = _LazyLayers(model.enc_layers, self._full)
-
-    def _full(self, module: nn.Module) -> dict:
-        mesh, rules, ep = self._at
-        out = {n: fsdp.gather(p, mesh, rules)
-               for n, p in module.named_parameters(recurse=False)}
-        for n, child in module.named_children():
-            out[n] = (gather_moe(child, mesh, rules, ep) if n == "moe"
-                      else self._full(child))
-        return out
+        # The layers read through a partial of the module-level
+        # functions, not a bound method: no reference cycle keeps the
+        # model alive past its last use.
+        at = (mesh, rules, ep, cfg, tp.split(), seq)
+        self._top = _own(at, model, "top")
+        self.layers = _LazyLayers(
+            model.layers, functools.partial(_full, at),
+            lambda i: cfg.block_pattern[i % cfg.period])
+        if cfg.enc_dec:
+            self.enc_layers = _LazyLayers(model.enc_layers,
+                                          functools.partial(_full, at),
+                                          lambda i: "attn")
 
     def __getitem__(self, name: str):
         return self._top[name]
@@ -236,25 +255,57 @@ class _Gathered:
         return self._top.get(name, default)
 
 
+def _own(at: tuple, module: nn.Module, kind: str) -> dict:
+    """A module's own parameters as :class:`_Gathered` reads them."""
+    mesh, rules, _, cfg, s, seq = at
+    if s is None:
+        return {n: fsdp.gather(p, mesh, rules)
+                for n, p in module.named_parameters(recurse=False)}
+    return {n: tp.read(p, n, module.specs[n], kind, cfg, mesh, rules, s,
+                       seq)
+            for n, p in module.named_parameters(recurse=False)}
+
+
+def _full(at: tuple, module: nn.Module, kind: str) -> dict:
+    """A block's parameters; ``kind`` its mixer's."""
+    mesh, rules, ep, *_ = at
+    out = _own(at, module, "block")
+    for n, child in module.named_children():
+        if n == "moe":
+            out[n] = gather_moe(child, mesh, rules, ep)
+        else:
+            out[n] = _own(at, child, kind if n == "mixer" else n)
+    return out
+
+
 class _LazyLayers:
-    def __init__(self, layers: nn.ModuleList, full):
-        self._layers, self._full = layers, full
+    def __init__(self, layers: nn.ModuleList, full, kind):
+        self._layers, self._full, self._kind = layers, full, kind
 
     def __getitem__(self, i: int) -> dict:
-        return self._full(self._layers[i])
+        return self._full(self._layers[i], self._kind(i))
 
     def __iter__(self):
-        return (self._full(m) for m in self._layers)
+        return (self[i] for i in range(len(self._layers)))
 
 
-def _read(params: GenericLM, cfg, moe_impl: str = "scatter"):
+def _read(params: GenericLM, cfg, moe_impl: str = "scatter",
+          seq: bool = False):
     """``params`` as the code reads it: the model itself off a mesh,
     a :class:`_Gathered` view under one."""
     ctx = fsdp.active()
     if ctx is None:
         return params
     return _Gathered(params, *ctx,
-                     ep=moe_impl == "ep" and ep_shards(cfg) is not None)
+                     ep=moe_impl == "ep" and ep_shards(cfg) is not None,
+                     seq=seq)
+
+
+def _seq_split() -> tuple:
+    """``(split, seq)``: the tensor-parallel split, and whether the
+    full-sequence paths split the stream along the sequence."""
+    s = tp.split()
+    return s, s is not None and s.sp
 
 
 def _rows(batch: dict, device) -> dict:
@@ -271,6 +322,21 @@ def _all_rows(t: torch.Tensor) -> torch.Tensor:
     """Every rank's rows of ``t`` under a mesh; ``t`` off one."""
     ctx = fsdp.active()
     return t if ctx is None else fsdp.gather_rows(t, *ctx)
+
+
+def _keep_context(fn):
+    """``fn`` under the sharding context active now, also where autograd
+    recomputes it (remat) on the engine's device thread, which a context
+    variable does not reach."""
+    ctx = current()
+    if ctx is None:
+        return fn
+
+    def run(*args):
+        with sharding_context(*ctx):
+            return fn(*args)
+
+    return run
 
 
 def _layers(cfg):
@@ -303,16 +369,20 @@ def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _embed_inputs(params: GenericLM, cfg, batch: dict, dtype):
+def _embed_inputs(params: GenericLM, cfg, batch: dict, dtype,
+                  seq: bool = False):
     """(x, positions): the token embeddings, after the projected patches
     of a vision model (with their M-RoPE grid positions); positions
     ``(B, S)``, or ``(3, B, S)`` under M-RoPE; sinusoids added under
-    ``rope="none"``."""
+    ``rope="none"``.  With ``seq`` (``sp_act``) ``x`` is this rank's
+    block of the sequence; the positions are the whole sequence's."""
     tokens = _on(params, batch["tokens"])
     B = tokens.shape[0]
+    s = tp.split() if seq else None
+    vision = cfg.frontend == "vision" and "patches" in batch
     x = embed_lookup(params, tokens, impl=cfg.gather_impl,
-                     compute_dtype=dtype)
-    if cfg.frontend == "vision" and "patches" in batch:
+                     compute_dtype=dtype, seq=seq and not vision)
+    if vision:
         patches = dense(params, "frontend",
                         _on(params, batch["patches"], torch.float32), dtype)
         x = torch.cat([patches, x], dim=1)
@@ -321,38 +391,45 @@ def _embed_inputs(params: GenericLM, cfg, batch: dict, dtype):
         positions = make_positions_mrope(B, x.shape[1], n_img,
                                          (g, max(1, n_img // g)),
                                          device=x.device)
-    else:
-        S = x.shape[1]
-        pos = torch.arange(S, dtype=torch.int32,
-                           device=x.device).expand(B, S)
-        positions = pos.expand(3, B, S) if cfg.rope == "mrope" else pos
-        if cfg.rope == "none":
-            x = x + _sinusoid(pos, cfg.d_model).to(x.dtype)
+        return tp.leave(x, s, False, seq), positions
+    S = tokens.shape[1]
+    pos = torch.arange(S, dtype=torch.int32,
+                       device=x.device).expand(B, S)
+    positions = pos.expand(3, B, S) if cfg.rope == "mrope" else pos
+    if cfg.rope == "none":
+        own = pos
+        if seq:
+            off, n = tp.block_of(S, s, "the sequence (sp_act)")
+            own = pos[:, off:off + n]
+        x = x + _sinusoid(own, cfg.d_model).to(x.dtype)
     return x, positions
 
 
-def _encode(params: GenericLM, cfg, batch: dict, dtype):
+def _encode(params: GenericLM, cfg, batch: dict, dtype, seq: bool):
     """The encoder stack over ``batch["frames"]`` (B, S, FRONTEND_DIM):
-    (encoder output, its positions)."""
+    (encoder output, its positions); with ``seq`` the output is this
+    rank's block of the sequence."""
     x = dense(params, "frontend", _on(params, batch["frames"],
                                       torch.float32), dtype)
     B, S = x.shape[:2]
     pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     x = x + _sinusoid(pos, cfg.d_model).to(x.dtype)
+    if seq:
+        x = tp.leave(x, tp.split(), False, True)
     for block in params.enc_layers:
         x, _ = block_forward(block, cfg, "attn", False, x, pos,
                              causal=False, dtype=dtype)
     return apply_norm(params, "norm_enc", x, cfg.norm), pos
 
 
-def _context(params, cfg, batch, dtype):
+def _context(params, cfg, batch, dtype, seq: bool = False):
     """The embedded inputs and, for an encoder-decoder, the keyword
     arguments its decoder blocks take."""
-    x, positions = _embed_inputs(params, cfg, batch, dtype)
+    x, positions = _embed_inputs(params, cfg, batch, dtype, seq)
     kw = {"cross": cfg.enc_dec}
     if cfg.enc_dec:
         kw["enc_out"], kw["enc_positions"] = _encode(params, cfg, batch,
-                                                     dtype)
+                                                     dtype, seq)
     return x, positions, kw
 
 
@@ -389,29 +466,30 @@ def forward(params: GenericLM, cfg, batch: dict, *,
     period.  The values are the same either way."""
     logits, aux = _forward(params, cfg, _rows(batch, params.device),
                            moe_impl, remat)
-    return _all_rows(logits), aux
+    return _all_rows(tp.full_vocab(logits, tp.split())), aux
 
 
 def _forward(params: GenericLM, cfg, batch: dict, moe_impl: str,
              remat: bool):
-    """:func:`forward` on this rank's rows: its logits and the aux
-    loss."""
+    """:func:`forward` on this rank's rows: its logits (its block of the
+    vocabulary under a tensor-parallel split) and the aux loss."""
     dtype = compute_dtype(cfg)
     remat = remat and torch.is_grad_enabled() and any(
         p.requires_grad for p in params.parameters())
-    params = _read(params, cfg, moe_impl)
-    x, positions, kw = _context(params, cfg, batch, dtype)
+    _, seq = _seq_split()
+    params = _read(params, cfg, moe_impl, seq)
+    x, positions, kw = _context(params, cfg, batch, dtype, seq)
     auxs = []
     for p in range(cfg.n_periods):
-        body = functools.partial(_period, params, cfg, p, positions, kw,
-                                 moe_impl, dtype)
+        body = _keep_context(functools.partial(
+            _period, params, cfg, p, positions, kw, moe_impl, dtype))
         if remat:
             x, a = checkpoint(body, x, use_reentrant=False)
         else:
             x, a = body(x)
         auxs.append(a)
     x = apply_norm(params, "norm_f", x, cfg.norm)
-    return (unembed(params, x, cfg.tie_embeddings, dtype),
+    return (unembed(params, x, cfg.tie_embeddings, dtype, seq=seq),
             torch.stack(auxs).sum())
 
 
@@ -431,8 +509,12 @@ def loss_fn(params: GenericLM, cfg, batch: dict, *, aux_weight: float = 0.01,
                        value=-1)
     mask = (labels >= 0).to(torch.float32)
     safe = labels.clamp_min(0)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    s = tp.split()
+    if s is None:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    else:
+        nll = tp.vocab_nll(logits, safe, s)
     count = torch.sum(mask)
     ctx = fsdp.active()
     dims = () if ctx is None else fsdp.batch_dims(ctx[0], ctx[1])
@@ -461,8 +543,9 @@ def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0, *,
     """The decode cache of ``batch`` sequences: ``max_len`` positions of
     each attention block's KV cache (the recurrent states have no time
     axis) and ``enc_len`` of the encoder's keys and values.  Under a mesh
-    it is this rank's: its rows and, under flash-decoding, its slice of
-    the positions (nothing else is allocated)."""
+    it is this rank's: its rows, its KV heads, channels and units under a
+    tensor-parallel split and, under flash-decoding, its slice of the
+    positions (nothing else is allocated)."""
     dev = resolve_device(device)
     dtype = compute_dtype(cfg)
     one = {f"b{j}": init_block_cache(cfg, kind, _cache_rows(batch),
@@ -495,17 +578,52 @@ def _cache_len(max_len: int) -> int:
     return max_len // n
 
 
+# The tensor-parallel dimension of each stacked cache leaf ``(periods,
+# rows, ...)``: ``kv`` leaves follow the KV heads, ``heads`` the mLSTM
+# heads, the others the channels (units).
+_SPLIT_DIM = {"attn": {k: (3, "kv") for k in _KV},
+              "mamba": {"conv": (3, "di"), "h": (2, "di")},
+              "mlstm": {"C": (2, "heads"), "n": (2, "heads"),
+                        "m": (2, "heads")},
+              "slstm": {k: (2, "di") for k in "cnhm"}}
+
+
+def _tp_cut(cfg, kind: str, k: str, v: torch.Tensor, s) -> torch.Tensor:
+    """This rank's block of a full stacked cache leaf ``k`` of a
+    ``kind`` block under the split ``s``."""
+    if k in ("cross_k", "cross_v"):
+        dim, unit = 3, "kv"
+    elif k in _SPLIT_DIM[kind]:
+        dim, unit = _SPLIT_DIM[kind][k]
+    else:
+        return v
+    if unit == "kv":
+        if tp.attention_split(s) is None:
+            return v
+        k0, k1 = tp.kv_heads(cfg, s)
+        return v.narrow(dim, k0, k1 - k0)
+    what = f"{kind} cache leaf {k!r}"
+    off, size = tp.block_of(v.shape[dim], s, what)
+    return v.narrow(dim, off, size)
+
+
 def _keep_block(cfg, cache: dict, rows: bool) -> dict:
+    """This rank's block of a cache: with ``rows`` (a full cache) its
+    rows and its tensor-parallel block; under flash-decoding, its slice
+    of the KV caches' positions."""
     ctx = fsdp.active()
     if ctx is None:
         return cache
     sp = sp_shards()
+    s = tp.split() if rows else None
     out = {}
     for j, kind in enumerate(cfg.block_pattern):
         leaves = {}
         for k, v in cache["blocks"][f"b{j}"].items():
             if rows:
                 v = fsdp.batch_block(v, *ctx, d=1)
+            if s is not None:
+                v = _tp_cut(cfg, kind, k, v, s)
             if sp is not None and kind == "attn" and k in _KV:
                 T = _cache_len(v.shape[2])
                 v = v.narrow(2, fsdp.axes_offset(sp[0], sp[1], T), T)
@@ -516,7 +634,8 @@ def _keep_block(cfg, cache: dict, rows: bool) -> dict:
 
 def shard_cache(cfg, cache: dict) -> dict:
     """This rank's block of a full cache (every rank's identical copy,
-    e.g. from :func:`prefill` outside the context): its rows and, under
+    e.g. from :func:`prefill` outside the context): its rows, its KV
+    heads, channels and units under a tensor-parallel split and, under
     flash-decoding, its slice of each KV cache's positions.  Off a mesh,
     ``cache`` itself."""
     return _keep_block(cfg, cache, rows=True)
@@ -529,8 +648,9 @@ def prefill(params: GenericLM, cfg, batch: dict, max_len: int, *,
     (under a mesh the cache is this rank's, as there)."""
     dtype = compute_dtype(cfg)
     batch = _rows(batch, params.device)
-    params = _read(params, cfg, moe_impl)
-    x, positions, kw = _context(params, cfg, batch, dtype)
+    s, seq = _seq_split()
+    params = _read(params, cfg, moe_impl, seq)
+    x, positions, kw = _context(params, cfg, batch, dtype, seq)
     flags = _moe_flags(cfg)
     caches = {j: [] for j in range(cfg.period)}
     for i, _, j, kind in _layers(cfg):
@@ -538,9 +658,10 @@ def prefill(params: GenericLM, cfg, batch: dict, max_len: int, *,
                                     x, positions, max_len,
                                     moe_impl=moe_impl, dtype=dtype, **kw)
         caches[j].append(cache)
-    x = apply_norm(params, "norm_f", x, cfg.norm)
+    x = tp.seq_full(apply_norm(params, "norm_f", x, cfg.norm), s, seq)
     logits = unembed(params, x[:, -1:], cfg.tie_embeddings, dtype)
-    return _all_rows(logits), _keep_block(cfg, _stack(caches), rows=False)
+    return (_all_rows(tp.full_vocab(logits, s)),
+            _keep_block(cfg, _stack(caches), rows=False))
 
 
 def decode_step(params: GenericLM, cfg, cache: dict, tokens, index, *,
@@ -552,6 +673,7 @@ def decode_step(params: GenericLM, cfg, cache: dict, tokens, index, *,
     (:func:`init_cache`) and the logits are every rank's rows."""
     dtype = compute_dtype(cfg)
     tokens = _rows({"tokens": _on(params, tokens)}, params.device)["tokens"]
+    s = tp.split()
     params = _read(params, cfg, moe_impl)
     x = embed_lookup(params, tokens, impl=cfg.gather_impl,
                      compute_dtype=dtype)
@@ -569,4 +691,4 @@ def decode_step(params: GenericLM, cfg, cache: dict, tokens, index, *,
         caches[j].append(nc)
     x = apply_norm(params, "norm_f", x, cfg.norm)
     logits = unembed(params, x, cfg.tie_embeddings, dtype)
-    return _all_rows(logits), _stack(caches)
+    return _all_rows(tp.full_vocab(logits, s)), _stack(caches)

@@ -39,6 +39,13 @@ averaged over the batch axes.  For training, the input's gradient is
 summed over the ``ep`` axes and the router's too (each rank's covers its
 experts), and each ``ep`` rank carries ``1/ep`` of the aux loss's.
 
+Under a tensor-parallel split the MoE layer is not split over ``tp``
+(its leaves have no ``tp`` axis): every ``tp`` rank computes it whole on
+the whole stream, or, with ``ep`` on the same axis, its own experts.
+Under ``sp_act`` the block gathers the stream's sequence blocks before
+the layer and keeps its own block after it
+(:mod:`repro_torch.models.blocks`).
+
 The reference's ``scatter-add`` into ``E * C + 1`` rows sends every
 dropped assignment, multiplied by 0, to the extra row and cuts it away;
 the port writes the kept rows only (each kept slot is unique, so the

@@ -21,6 +21,14 @@ xLSTM (mLSTM / sLSTM).
 
 The ``-inf`` stabiliser starts (``m``) give 0, never NaN: ``exp(-inf) =
 0`` and every ``m_new`` is finite.
+
+Under a tensor-parallel split (:mod:`repro_torch.dist.tp`) each mixer
+takes a rank's blocks (the fused ``in_proj``, ``qkv``, ``gates`` and
+``zifo`` cut part by part) and runs on its channels or heads: the
+widths come from the weights, the caches' from the split.  Mamba's
+``x_proj`` is row-parallel into outputs every channel reads, so its
+partial sums are all-reduced (:func:`tp.shared`); the out-projections'
+partial sums are reduced by the block.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import math
 
 import torch
 
+from ..dist import tp
 from ..kernels.slstm_ops import fused_slstm_forward
 from ..kernels.slstm_ref import init_slstm_state, softplus
 from .layers import Params, dense, init_dense, silu
@@ -101,7 +110,7 @@ def _mamba_in(params, cfg, x, dtype, carry=None):
     xi, conv = _mamba_conv(xi, params["conv_w"].to(dtype),
                            params["conv_b"].to(dtype), carry)
     xi = silu(xi)
-    bcd = dense(params, "x_proj", xi, dtype).float()
+    bcd = tp.shared(dense(params, "x_proj", xi, dtype), tp.split()).float()
     # dt is one value a token, broadcast over d_inner by dt_bias (as the
     # reference's x_proj of 2 * ds + 1 outputs).
     Bm, Cm, dt = bcd[..., :ds], bcd[..., ds:2 * ds], bcd[..., -1:]
@@ -128,7 +137,7 @@ def mamba_forward(params, cfg, x: torch.Tensor, *, chunk: int = 256,
     xf = xi.float()
     if S % chunk:
         chunk = S
-    h = torch.zeros((B, cfg.d_inner, cfg.d_state), dtype=torch.float32,
+    h = torch.zeros((B, xi.shape[-1], cfg.d_state), dtype=torch.float32,
                     device=x.device)
     ys = []
     for c0 in range(0, S, chunk):
@@ -147,11 +156,12 @@ def mamba_forward(params, cfg, x: torch.Tensor, *, chunk: int = 256,
 
 def init_mamba_cache(cfg, batch: int, dtype=torch.float32, *,
                      device) -> dict:
+    di = tp.local_inner(cfg, "mamba d_inner")
     return {
-        "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner),
-                            dtype=dtype, device=device),
-        "h": torch.zeros((batch, cfg.d_inner, cfg.d_state),
-                         dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.d_conv - 1, di), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, di, cfg.d_state), dtype=torch.float32,
+                         device=device),
     }
 
 
@@ -181,19 +191,29 @@ def init_mlstm(p: Params, cfg):
     init_dense(p, "out_proj", di, d, ("tp", "fsdp"))
 
 
+def _mlstm_hd(cfg) -> int:
+    return cfg.d_inner // cfg.n_heads
+
+
+def _mlstm_local_heads(cfg) -> int:
+    """This rank's mLSTM heads; heads a split does not divide raise."""
+    s = tp.split()
+    return cfg.n_heads if s is None else tp.block_of(
+        cfg.n_heads, s, "mlstm n_heads (qkv, gates)")[1]
+
+
 def _mlstm_heads(cfg, t: torch.Tensor) -> torch.Tensor:
     B, S, di = t.shape
-    H = cfg.n_heads
-    return t.reshape(B, S, H, di // H)
+    return t.reshape(B, S, -1, _mlstm_hd(cfg))
 
 
 def mlstm_forward(params, cfg, x: torch.Tensor, *, chunk: int = 128,
                   dtype=torch.bfloat16, return_state: bool = False):
     """Chunkwise-parallel mLSTM.  ``x``: (B, S, d) -> (B, S, d)."""
     B, S, _ = x.shape
-    H = cfg.n_heads
-    di = cfg.d_inner
-    hd = di // H
+    H = _mlstm_local_heads(cfg)
+    hd = _mlstm_hd(cfg)
+    di = H * hd
     qkv = dense(params, "qkv", x, dtype)
     q, k, v = (_mlstm_heads(cfg, t).float() for t in qkv.chunk(3, dim=-1))
     gates = dense(params, "gates", x, dtype).float()
@@ -253,8 +273,8 @@ def mlstm_forward(params, cfg, x: torch.Tensor, *, chunk: int = 128,
 
 
 def init_mlstm_cache(cfg, batch: int, *, device) -> dict:
-    H = cfg.n_heads
-    hd = cfg.d_inner // H
+    H = _mlstm_local_heads(cfg)
+    hd = _mlstm_hd(cfg)
     return {
         "C": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
                          device=device),
@@ -268,9 +288,9 @@ def mlstm_step(params, cfg, x: torch.Tensor, cache: dict, *,
                dtype=torch.bfloat16):
     """O(1)-state decode step.  ``x``: (B, 1, d)."""
     B = x.shape[0]
-    H = cfg.n_heads
-    di = cfg.d_inner
-    hd = di // H
+    H = _mlstm_local_heads(cfg)
+    hd = _mlstm_hd(cfg)
+    di = H * hd
     qkv = dense(params, "qkv", x, dtype)
     q, k, v = (_mlstm_heads(cfg, t)[:, 0].float()
                for t in qkv.chunk(3, dim=-1))              # (B, H, hd)
@@ -320,7 +340,8 @@ def slstm_forward(params, cfg, x: torch.Tensor, *, dtype=torch.bfloat16,
 
 
 def init_slstm_cache(cfg, batch: int, *, device) -> dict:
-    return _state_dict(init_slstm_state(batch, cfg.d_inner, device=device))
+    return _state_dict(init_slstm_state(
+        batch, tp.local_inner(cfg, "slstm d_inner"), device=device))
 
 
 def slstm_step(params, cfg, x: torch.Tensor, cache: dict, *,

@@ -10,7 +10,13 @@ gradient runs the backward kernels of rows 9 and 10 (``onehot`` gather,
 sLSTM recurrence) beside their forwards.  Under a sharding context the
 step is data parallel with ZeRO-3 (:mod:`repro_torch.models.model`):
 each rank passes the same global batch and keeps its blocks of the
-parameters, gradients and moments; the loss is the global one.
+parameters, gradients and moments; the loss is the global one.  Under a
+tensor-parallel split (:mod:`repro_torch.dist.tp`) a ``tp``-split
+leaf's gradient is the rank's block and a replicated leaf's is equal on
+every ``tp`` rank, so the global norm
+(:func:`repro_torch.training.optim.global_norm`, which sums each placed
+leaf's squares over the mesh dimensions that split it) and the float32
+accumulation of microbatches need nothing more.
 """
 
 from __future__ import annotations

@@ -1119,3 +1119,105 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
         far += int((d > ocfg.lr / 10).sum())
         total += d.numel()
     assert far <= total // 100
+
+
+# ----------------------------------------------------------------------
+# Rows 9, 9b, 10 and 10b at a tensor-parallel rank's split shapes
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V,D", [(50304, 768), (65024, 512)])
+@pytest.mark.parametrize("n", [4, 512])
+def test_row_gather_with_a_shard_offset(dev, dtype, V, D, n):
+    """Row 9 on each half of a vocabulary (xlstm-125m's, chatglm3-6b's at
+    tp = 2), ids over the whole of it and on both sides of the boundary:
+    each half bitwise its plain version on ``ids - offset`` (zero rows
+    for about half the ids), and the two halves sum to F.embedding of
+    the whole table bitwise; one launch per call."""
+    from repro_torch.kernels.gather_kernel_ops import cuda_onehot_gather
+    from repro_torch.kernels.gather_ref import gather_ref
+
+    g = torch.Generator(device=dev).manual_seed(V + n)
+    table = torch.randn((V, D), generator=g, device=dev).to(dtype)
+    ids = torch.randint(0, V, (n,), generator=g, device=dev)
+    ids[0], ids[-1] = V // 2 - 1, V // 2
+    half = V // 2
+    outs = []
+    for r in range(2):
+        block = table[r * half:(r + 1) * half]
+        before = LAUNCHES["onehot_gather"]
+        got = cuda_onehot_gather(block, ids, offset=r * half)
+        torch.cuda.synchronize()
+        assert LAUNCHES["onehot_gather"] == before + 1
+        assert torch.equal(got, gather_ref(block, ids - r * half))
+        outs.append(got)
+    assert torch.equal(outs[0] + outs[1],
+                       torch.nn.functional.embedding(ids, table))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,inside", [(512, 0.5), (8192, 0.5),
+                                      (512, 0.05), (4096, 0.0)])
+def test_gather_backward_with_most_ids_out_of_range(dev, dtype, n, inside):
+    """Row 9b through the autograd path on a rank's block of xlstm-125m's
+    vocabulary (25152 of 50304 rows, offset 25152): about half, a
+    twentieth or none of the ids in the block.  Bitwise its plain version
+    on ``ids - offset``; rows no id hits are zero."""
+    from repro_torch.kernels.gather_kernel_ops import cuda_onehot_gather
+    from repro_torch.kernels.gather_ref import gather_grad_ref
+
+    V, half, D = 50304, 25152, 768
+    g = torch.Generator(device=dev).manual_seed(n + int(100 * inside))
+    mine = torch.rand((n,), generator=g, device=dev) < inside
+    ids = torch.where(mine,
+                      torch.randint(half, V, (n,), generator=g, device=dev),
+                      torch.randint(0, half, (n,), generator=g, device=dev))
+    block = torch.randn((half, D), generator=g, device=dev).to(dtype)
+    block.requires_grad_(True)
+    dout = torch.randn((n, D), generator=g, device=dev).to(dtype)
+    before = dict(LAUNCHES)
+    out = cuda_onehot_gather(block, ids, offset=half)
+    (got,) = torch.autograd.grad(out, [block], dout)
+    torch.cuda.synchronize()
+    assert LAUNCHES["onehot_gather"] == before["onehot_gather"] + 1
+    assert LAUNCHES["onehot_gather_backward"] == \
+        before["onehot_gather_backward"] + 1
+    assert torch.equal(got, gather_grad_ref(ids - half, dout, half))
+    hit = torch.zeros(half, dtype=torch.bool, device=dev)
+    hit[ids[mine] - half] = True
+    assert not got[~hit].any()
+
+
+@pytest.mark.parametrize("di", [384, 768])
+@pytest.mark.parametrize("B", [1, 8])
+def test_slstm_kernels_at_split_widths(dev, di, B):
+    """Rows 10 and 10b at a rank's units of xlstm-125m's 1536 (tp = 4 and
+    2), B = 1 and 8, from a fresh state, each against its plain version
+    at 2e-4; S = 64 covers 10b's chunks of W x T = 8 x 6 steps with a
+    remainder."""
+    from repro_torch.kernels.slstm import (launch_slstm,
+                                           launch_slstm_backward,
+                                           launch_slstm_train)
+    from repro_torch.kernels.slstm_ref import (init_slstm_state,
+                                               slstm_backward_ref,
+                                               slstm_recurrence_ref)
+
+    S = 64
+    g = torch.Generator(device=dev).manual_seed(di + B)
+    zifo = torch.randn((B, S, 4, di), generator=g, device=dev)
+    r = torch.randn((4, di), generator=g, device=dev) / di ** 0.5
+    state = init_slstm_state(B, di, device=dev)
+    dhs = torch.randn((B, S, di), generator=g, device=dev)
+    before = dict(LAUNCHES)
+    hs, final = launch_slstm(zifo, r, state)
+    train_hs, _, states = launch_slstm_train(zifo, r, state)
+    dz, dr = launch_slstm_backward(zifo, r, state, train_hs, states, dhs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["slstm"] == before["slstm"] + 2
+    assert LAUNCHES["slstm_backward"] == before["slstm_backward"] + 1
+    want_hs, want_final = slstm_recurrence_ref(zifo, r, state)
+    torch.testing.assert_close(hs, want_hs, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(final, want_final, rtol=2e-4, atol=2e-4)
+    want_z, want_r = slstm_backward_ref(zifo, r, state, dhs)
+    torch.testing.assert_close(dz, want_z, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(dr, want_r, rtol=2e-4, atol=2e-4)
