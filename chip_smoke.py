@@ -3511,11 +3511,11 @@ def rank_train(rank: int, d: pathlib.Path, dev, meta: dict) -> dict:
     mesh, the launches of rows 9, 9b, 10, 10b, the bytes held, then a
     checkpoint and each leaf's block digest."""
     from repro_torch.ckpt import save_checkpoint
-    from repro_torch.dist import fsdp, place_params
+    from repro_torch.dist import fsdp
     from repro_torch.dist.sharding import ShardingRules, sharding_context
     from repro_torch.kernels import LAUNCHES
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models.model import init_model, param_specs
+    from repro_torch.models.model import init_model
     from repro_torch.training import (AdamWConfig, init_opt_state,
                                       make_train_step)
 
@@ -3528,9 +3528,9 @@ def rank_train(rank: int, d: pathlib.Path, dev, meta: dict) -> dict:
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in
                 np.load(d / f"batch{i}.npz").items()}
                for i in range(MESH_TRAIN_STEPS)]
-    model = init_model(cfg, seed=SEED, device=dev).requires_grad_(True)
+    model = init_model(cfg, seed=SEED, device=dev, mesh=mesh,
+                       rules=rules).requires_grad_(True)
     with sharding_context(mesh, rules):
-        place_params(model, param_specs(cfg), mesh, rules)
         opt = init_opt_state(model, ocfg)
         step = make_train_step(cfg, ocfg)
         if dev.type == "cuda":
@@ -3627,25 +3627,19 @@ def rank_ep(rank: int, d: pathlib.Path, dev, meta: dict) -> dict:
     """16d on one rank: the model placed with its experts split over the
     (1, MESH_RANKS) mesh's ``model`` axis, one forward with
     ``moe_impl="ep"``, held to the one-rank scatter logits."""
-    import torch.distributed as dist
-
-    from repro_torch.dist import place_params
     from repro_torch.dist.sharding import ShardingRules, sharding_context
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models.model import forward, init_model, param_specs
+    from repro_torch.models.model import forward, init_model
 
     cfg = mesh_cfg(meta)
     mesh = make_local_mesh(1, MESH_RANKS, device=dev)
     rules = ShardingRules(batch=("data",), fsdp=(), tp=(), ep=("model",))
     toks = torch.from_numpy(np.load(d / "tokens.npy")).to(dev)
-    # One rank at a time holds the full draw before it keeps its block.
-    for r in range(MESH_RANKS):
-        if r == rank:
-            model = init_model(cfg, seed=SEED, device=dev)
-            place_params(model, param_specs(cfg), mesh, rules)
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-        dist.barrier()
+    # Each parameter is placed as it is drawn: a rank holds at most one
+    # whole parameter beside its blocks.
+    model = init_model(cfg, seed=SEED, device=dev, mesh=mesh, rules=rules)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     experts = [p for n, p in model.named_parameters()
                if n.endswith(("w_gate", "w_up", "w_down"))]
     held = sum(p.to_local().numel() * p.element_size() for p in experts)
@@ -4225,7 +4219,7 @@ def split_kernel_checks(cfg, r: int, n: int, dev) -> dict:
     dout = torch.randn((ids.shape[0], D), generator=g,
                        device=dev).to(torch.bfloat16)
     got = cuda_onehot_gather(table, ids, offset=off)
-    grad = launch_onehot_gather_grad(ids - off, dout, V)
+    grad = launch_onehot_gather_grad(ids, dout, V, off)
     inside = float(((ids >= off) & (ids < off + V)).float().mean())
     out = {"row9": {"V": V, "offset": off, "ok": torch.equal(
                got, gather_ref(table, ids - off))},
@@ -4351,9 +4345,12 @@ def time_split_kernels(xcfg, glm, dev) -> dict:
         plain = per_call_ms(lambda: gather_ref(table, local), 2, reps=3)
         bms, by = bytes_bound(N * D * dtype.itemsize + N * 8
                               + int(inside.sum()) * D * dtype.itemsize)
+        # The launch the kernels' offset saves: ids - offset on its own.
+        sub = device_ms(lambda: ids - V, inner)
         out["row9"][key] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                            "bound_ms": bms, "bound_by": by}
-        ms = device_ms(lambda: launch_onehot_gather_grad(local, dout, V),
+                            "bound_ms": bms, "bound_by": by,
+                            "subtract_ms": sub}
+        ms = device_ms(lambda: launch_onehot_gather_grad(ids, dout, V, V),
                        inner)
         lib = device_ms(lambda: torch.ops.aten.embedding_dense_backward(
             dout, clamped, V, -1, False), inner)
@@ -4388,6 +4385,8 @@ def time_split_kernels(xcfg, glm, dev) -> dict:
         for key, e in entries.items():
             lib = ("" if e["library_ms"] is None
                    else f", library {e['library_ms']:.5f}")
+            if "subtract_ms" in e:
+                lib += f"; ids - offset alone {e['subtract_ms']:.5f}"
             print(f"  17 {row} {key}: {e['ms']:.5f} ms (bound "
                   f"{e['bound_ms']:.5f}, {e['bound_by']}; plain "
                   f"{e['plain_ms']:.4f}{lib})")
@@ -4523,13 +4522,17 @@ def check_tp_train(cfg, dev, tmp: pathlib.Path, base: dict,
     here), each rank launching rows 9, 9b, 10 and 10b at its split shapes
     and holding them there to their plain versions.
 
-    float32 is held to 16b's bounds.  In bfloat16 the split rounds each
+    float32 is held to 16b's bounds: after step 0, twice the drift of
+    one rank's own run in two microbatches, which changes nothing but
+    the order of the gradient's sums.  In bfloat16 the split rounds each
     row-parallel partial sum to bfloat16 before the all-reduce, and at
     this initialisation the model's bfloat16 gradients follow their
     rounding, so each step's loss and gradient norm are held to 16b's
     bounds or to twice the gap of one rank that rounds its ``out_proj``
     partial sums the same way (:func:`split_rounding_run`), where that
-    is larger."""
+    is larger.  In float32 that run is printed beside the split, not
+    used as a bound: it shows how far the split's order of sums alone
+    moves the later steps."""
     n_ranks = TP_TRAIN_MESH[0] * TP_TRAIN_MESH[1]
     n_slstm = sum(k == "slstm" for k in cfg.block_pattern) * cfg.n_periods
     per_step = {"onehot_gather": 1, "onehot_gather_backward": 1,
@@ -4539,6 +4542,7 @@ def check_tp_train(cfg, dev, tmp: pathlib.Path, base: dict,
         c = dataclasses.replace(cfg, param_dtype=dtype)
         d = tmp / dtype
         d.mkdir()
+        micro = None
         if dtype == "bfloat16" and b16 is not None:
             one, later = b16["one_rank"], b16["bounds"]
             from repro_torch.data import TokenDataset
@@ -4549,7 +4553,7 @@ def check_tp_train(cfg, dev, tmp: pathlib.Path, base: dict,
                 np.savez(d / f"batch{i}.npz", **{
                     k: v.cpu().numpy() for k, v in ds.batch(i).items()})
         else:
-            one, _, _, later = one_rank_train(c, dev, d)
+            one, _, micro, later = one_rank_train(c, dev, d)
         (d / "meta.json").write_text(json.dumps(dict(
             mesh_meta(c, base), world=n_ranks, mesh=list(TP_TRAIN_MESH),
             split_checks=True)))
@@ -4563,11 +4567,10 @@ def check_tp_train(cfg, dev, tmp: pathlib.Path, base: dict,
         gn_gap = abs(r0["grad_norms"][0] - one[0][1]) / one[0][1]
         gn_bound = MESH_TRAIN_RTOL[0]
         bounds = [MESH_TRAIN_RTOL[0]] + later[1:]
-        emulated = None
+        emulated = split_rounding_run(c, dev, d, TP_TRAIN_MESH[1])
+        drift = [abs(emulated[i][0] - one[i][0]) / abs(one[i][0])
+                 for i in range(MESH_TRAIN_STEPS)]
         if dtype == "bfloat16":
-            emulated = split_rounding_run(c, dev, d, TP_TRAIN_MESH[1])
-            drift = [abs(emulated[i][0] - one[i][0]) / abs(one[i][0])
-                     for i in range(MESH_TRAIN_STEPS)]
             gn_bound = max(gn_bound,
                            2 * abs(emulated[0][1] - one[0][1]) / one[0][1])
             bounds = [max(b, 2 * g) for b, g in zip(bounds, drift)]
@@ -4594,18 +4597,22 @@ def check_tp_train(cfg, dev, tmp: pathlib.Path, base: dict,
               f"(bounds {['%.2e' % b for b in bounds]}), grad norm "
               f"{gn_gap:.2e} (bound {gn_bound:.2e}); one rank "
               f"{statistics.median(x[2] for x in one[1:]):.4f} s a step")
-        if emulated is not None:
-            print(f"  17b {dtype}: one rank rounding its out_proj partial "
-                  f"sums as the split does: losses "
-                  f"{['%.6f' % x[0] for x in emulated]} (one rank "
-                  f"{['%.6f' % x[0] for x in one]}, the split "
-                  f"{['%.6f' % x for x in r0['losses']]}); step 0's grad "
-                  f"norm {emulated[0][1]:.4f} (one rank {one[0][1]:.4f}, "
-                  f"the split {r0['grad_norms'][0]:.4f})")
+        print(f"  17b {dtype}: one rank rounding its out_proj partial "
+              f"sums as the split does: losses "
+              f"{['%.6f' % x[0] for x in emulated]} (one rank "
+              f"{['%.6f' % x[0] for x in one]}, the split "
+              f"{['%.6f' % x for x in r0['losses']]}); its loss drift "
+              f"{['%.2e' % g for g in drift]}; step 0's grad norm "
+              f"{emulated[0][1]:.4f} (one rank {one[0][1]:.4f}, the split "
+              f"{r0['grad_norms'][0]:.4f})")
+        if micro is not None:
+            print(f"  17b {dtype}: one rank in two microbatches, loss drift "
+                  f"{['%.2e' % g for g in micro]}")
         out[dtype] = {"ranks": [{k: v for k, v in r.items()
                                  if k != "blocks"} for r in recs],
                       "one_rank": one, "split_rounding": emulated,
-                      "loss_gaps": gaps,
+                      "split_rounding_drift": drift,
+                      "microbatch_drift": micro, "loss_gaps": gaps,
                       "bounds": bounds, "grad_norm_gap": gn_gap,
                       "grad_norm_bound": gn_bound}
     return out

@@ -140,7 +140,9 @@ def place_params(module: nn.Module, specs: dict, mesh, rules) -> nn.Module:
     """Replace each parameter of ``module`` (named as in ``specs``, e.g.
     :func:`repro_torch.models.model.param_specs`) by its placed DTensor,
     in place; the full tensors are freed.  A mesh of one rank places
-    nothing."""
+    nothing.  This is for parameters loaded whole (converted from the
+    reference); a drawn model is placed as it is drawn
+    (:func:`repro_torch.models.model.init_model` with ``mesh=``)."""
     if mesh.size() == 1:
         return module
     named = dict(module.named_parameters())
@@ -278,11 +280,25 @@ def batch_block(x: torch.Tensor, mesh, rules, d: int = 0) -> torch.Tensor:
     return local_block(x, mesh, _batch_placements(mesh, rules, d))
 
 
-def gather_rows(x: torch.Tensor, mesh, rules, d: int = 0) -> torch.Tensor:
-    """The inverse of :func:`batch_block`: every rank's rows, in order
-    (no gradient)."""
-    with torch.no_grad():
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, rules, d):
+        ctx.meta = (mesh, rules, d)
         return _gather_local(x, mesh, _batch_placements(mesh, rules, d))
+
+    @staticmethod
+    def backward(ctx, g):
+        return batch_block(g, *ctx.meta).contiguous(), None, None, None
+
+
+def gather_rows(x: torch.Tensor, mesh, rules, d: int = 0) -> torch.Tensor:
+    """The inverse of :func:`batch_block`: every rank's rows, in order.
+    Its gradient is cut back to this rank's rows: every rank holds the
+    same whole value, and the parameters' gradients are summed over the
+    batch axes afterwards."""
+    if not batch_dims(mesh, rules):
+        return x
+    return _GatherRows.apply(x, mesh, rules, d)
 
 
 def reduced(t: torch.Tensor, mesh, dims, op=dist.ReduceOp.SUM):

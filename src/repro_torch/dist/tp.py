@@ -306,24 +306,25 @@ def _reduce_scatter(t: torch.Tensor, s: Split, d: int) -> torch.Tensor:
 
 
 def _own(t: torch.Tensor, s: Split, d: int) -> torch.Tensor:
-    off, size = block_of(t.shape[d], s, "the sequence (sp_act)")
+    off, size = block_of(t.shape[d], s, f"dimension {d} of {tuple(t.shape)}")
     return t.narrow(d, off, size).contiguous()
 
 
-class _SeqGather(torch.autograd.Function):
-    """All-gather along the sequence; gradient reduce-scattered (``sum``,
-    a split consumer) or cut to this rank's block (a whole one)."""
+class _Gather(torch.autograd.Function):
+    """All-gather along dimension ``d``; gradient reduce-scattered
+    (``summed``, a split consumer) or cut to this rank's block (a whole
+    one, every rank holding the same value)."""
 
     @staticmethod
-    def forward(ctx, x, s, summed):
-        ctx.s, ctx.summed = s, summed
-        return _all_gather(x, s, 1)
+    def forward(ctx, x, s, d, summed):
+        ctx.s, ctx.d, ctx.summed = s, d, summed
+        return _all_gather(x.contiguous(), s, d)
 
     @staticmethod
     def backward(ctx, g):
-        s = ctx.s
-        return (_reduce_scatter(g, s, 1) if ctx.summed else _own(g, s, 1),
-                None, None)
+        s, d = ctx.s, ctx.d
+        return (_reduce_scatter(g, s, d) if ctx.summed else _own(g, s, d),
+                None, None, None)
 
 
 class _SeqScatter(torch.autograd.Function):
@@ -349,7 +350,7 @@ def enter(h: torch.Tensor, s: Split | None, split_sub: bool,
     if s is None:
         return h
     if seq:
-        return _SeqGather.apply(h, s, split_sub)
+        return _Gather.apply(h, s, 1, split_sub)
     return copy_to_tp(h, s) if split_sub else h
 
 
@@ -367,7 +368,7 @@ def leave(y: torch.Tensor, s: Split | None, split_sub: bool,
 
 def seq_full(x: torch.Tensor, s: Split | None, seq: bool) -> torch.Tensor:
     """The whole sequence of a split stream (every rank's equal copy)."""
-    return x if s is None or not seq else _SeqGather.apply(x, s, False)
+    return x if s is None or not seq else _Gather.apply(x, s, 1, False)
 
 
 # ----------------------------------------------------------------------
@@ -375,11 +376,11 @@ def seq_full(x: torch.Tensor, s: Split | None, seq: bool) -> torch.Tensor:
 # ----------------------------------------------------------------------
 
 def full_vocab(logits: torch.Tensor, s: Split | None) -> torch.Tensor:
-    """Every rank's block of the vocabulary, in order (no gradient)."""
+    """Every rank's block of the vocabulary, in order; the gradient is
+    cut back to this rank's block (every rank holds the same logits)."""
     if s is None:
         return logits
-    with torch.no_grad():
-        return _all_gather(logits.contiguous(), s, logits.ndim - 1)
+    return _Gather.apply(logits, s, logits.ndim - 1, False)
 
 
 class _VocabNLL(torch.autograd.Function):

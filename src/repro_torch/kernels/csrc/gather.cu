@@ -1,5 +1,8 @@
-// Row gather for Hopper (sm_90a): out[n] = table[ids[n]], zero rows for
-// ids outside [0, V).
+// Row gather for Hopper (sm_90a): out[n] = table[ids[n] - offset], zero
+// rows for ids outside [offset, offset + V).  offset is 0 for a whole
+// table and r V for a tensor-parallel rank's block of rows [r V, r V +
+// V) of the vocabulary: the kernels subtract it as they read each id, so
+// a split costs no extra launch.
 //
 // Replaces, on the card, the TPU kernel
 // repro/kernels/gather.py::onehot_gather_kernel (via onehot_gather_pallas
@@ -47,12 +50,12 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
     gather_rows_kernel(const Unit* __restrict__ table,
                        const int64_t* __restrict__ ids,
                        Unit* __restrict__ out, long long n, long long V,
-                       int units) {
+                       long long offset, int units) {
   const int u0 = blockIdx.x * (32 * U) + threadIdx.x;
   for (long long row =
            static_cast<long long>(blockIdx.y) * kRowsPerBlock + threadIdx.y;
        row < n; row += static_cast<long long>(gridDim.y) * kRowsPerBlock) {
-    const long long id = __ldg(ids + row);
+    const long long id = __ldg(ids + row) - offset;
     const bool ok = id >= 0 && id < V;
     const Unit* src = table + static_cast<size_t>(ok ? id : 0) * units;
     Unit* dst = out + static_cast<size_t>(row) * units;
@@ -72,11 +75,11 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
 
 template <typename Unit, int U>
 void launch_u(const void* table, const void* ids, void* out, long long n,
-              long long V, int units, const dim3& grid,
+              long long V, long long offset, int units, const dim3& grid,
               cudaStream_t stream) {
   gather_rows_kernel<Unit, U><<<grid, dim3(32, kRowsPerBlock), 0, stream>>>(
       static_cast<const Unit*>(table), static_cast<const int64_t*>(ids),
-      static_cast<Unit*>(out), n, V, units);
+      static_cast<Unit*>(out), n, V, offset, units);
 }
 
 // The grid over (row, unit) for `units` units a row: the largest U of
@@ -84,7 +87,7 @@ void launch_u(const void* table, const void* ids, void* out, long long n,
 // has).
 template <typename Unit>
 int launch(const void* table, const void* ids, void* out, long long n,
-           long long V, int units, void* stream) {
+           long long V, long long offset, int units, void* stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -102,21 +105,22 @@ int launch(const void* table, const void* ids, void* out, long long n,
   };
   auto st = static_cast<cudaStream_t>(stream);
   if (blocks(4) >= 2LL * sms)
-    launch_u<Unit, 4>(table, ids, out, n, V, units, grid(4), st);
+    launch_u<Unit, 4>(table, ids, out, n, V, offset, units, grid(4), st);
   else if (blocks(2) >= 2LL * sms)
-    launch_u<Unit, 2>(table, ids, out, n, V, units, grid(2), st);
+    launch_u<Unit, 2>(table, ids, out, n, V, offset, units, grid(2), st);
   else
-    launch_u<Unit, 1>(table, ids, out, n, V, units, grid(1), st);
+    launch_u<Unit, 1>(table, ids, out, n, V, offset, units, grid(1), st);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Elem>
 int launch_rows(const void* table, const void* ids, void* out, long long n,
-                long long V, int D, int vec16, void* stream) {
+                long long V, long long offset, int D, int vec16,
+                void* stream) {
   if (vec16)
-    return launch<uint4>(table, ids, out, n, V,
+    return launch<uint4>(table, ids, out, n, V, offset,
                          static_cast<int>(D * sizeof(Elem) / 16), stream);
-  return launch<Elem>(table, ids, out, n, V, D, stream);
+  return launch<Elem>(table, ids, out, n, V, offset, D, stream);
 }
 
 // ---------------------------------------------------------------------
@@ -171,20 +175,21 @@ int launch_rows(const void* table, const void* ids, void* out, long long n,
 //
 // Above kBlockMaxN ids the launcher takes the sort path: it sorts the
 // ids with torch.sort (stable); starts_kernel finds each row's run by a
-// binary search (starts[v] = the first sorted position with id >= v, for
-// v in [0, V]); gather_grad_kernel walks the rows, a warp a row, each
-// lane U units of it, adding the run's rows in position order.
+// binary search (starts[v] = the first sorted position with id >= v +
+// offset, for v in [0, V]); gather_grad_kernel walks the rows, a warp a
+// row, each lane U units of it, adding the run's rows in position order.
 
 __global__ void starts_kernel(const int64_t* __restrict__ sorted,
                               int64_t* __restrict__ starts, long long n,
-                              long long V) {
+                              long long V, long long offset) {
   const long long v = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (v > V) return;
-  long long lo = 0, hi = n;          // first position with sorted >= v
+  const long long want = v + offset;
+  long long lo = 0, hi = n;          // first position with sorted >= want
   while (lo < hi) {
     const long long mid = (lo + hi) >> 1;
-    if (__ldg(sorted + mid) < v)
+    if (__ldg(sorted + mid) < want)
       lo = mid + 1;
     else
       hi = mid;
@@ -265,13 +270,13 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
 // multiple of 16 and both pointers are 16-byte aligned, else one.
 template <typename Elem>
 int launch_grad(const void* sorted, const void* perm, const void* dout,
-                void* starts, void* dtable, long long n, long long V, int D,
-                int vec16, void* stream) {
+                void* starts, void* dtable, long long n, long long V,
+                long long offset, int D, int vec16, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const long long sblocks = (V + 1 + 255) / 256;
   starts_kernel<<<static_cast<unsigned>(sblocks), 256, 0, st>>>(
       static_cast<const int64_t*>(sorted), static_cast<int64_t*>(starts), n,
-      V);
+      V, offset);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int kVec16 = 16 / sizeof(Elem);
@@ -340,7 +345,8 @@ __device__ __forceinline__ uint32_t exchange(uint32_t x, int i, int stride,
 // row) and n_runs[0] = H.
 __global__ void __launch_bounds__(kSortThreads)
     grad_sort_kernel(const int64_t* __restrict__ ids, long long n,
-                     long long V, int p2, uint32_t* __restrict__ hitmap,
+                     long long V, long long offset, int p2,
+                     uint32_t* __restrict__ hitmap,
                      int* __restrict__ head, int* __restrict__ pos,
                      int* __restrict__ run_row, int* __restrict__ runs) {
   // The row writer may be placed on the other SMs now; it waits for
@@ -360,7 +366,7 @@ __global__ void __launch_bounds__(kSortThreads)
 #pragma unroll
   for (int e = 0; e < kMaxE; ++e) {
     const int k = t + e * T;
-    id[e] = e < E && k < n ? ids[k] : -1;
+    id[e] = e < E && k < n ? ids[k] - offset : -1;
   }
   const long long words = (V + 31) / 32;
   for (long long wd = t; wd < words; wd += T) hitmap[wd] = 0u;
@@ -564,8 +570,8 @@ __global__ void __launch_bounds__(32 * kWriterWarps)
 // pos (n), run_row (n), runs (1).
 template <typename Elem>
 int launch_grad_block(const void* ids, const void* dout, void* scratch,
-                      void* dtable, long long n, long long V, int D,
-                      int vec16, void* stream) {
+                      void* dtable, long long n, long long V,
+                      long long offset, int D, int vec16, void* stream) {
   if (n > kBlockMaxN || V > (1LL << (32 - kPosBits)) - 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
@@ -588,8 +594,8 @@ int launch_grad_block(const void* ids, const void* dout, void* scratch,
   int* run_row = pos + n;
   int* runs = run_row + n;
   grad_sort_kernel<<<1, threads, smem, st>>>(
-      static_cast<const int64_t*>(ids), n, V, p2, hitmap, head, pos, run_row,
-      runs);
+      static_cast<const int64_t*>(ids), n, V, offset, p2, hitmap, head, pos,
+      run_row, runs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // Rows a zero group: the most (a power of two, at most a word's 32)
@@ -634,63 +640,72 @@ int launch_grad_block(const void* ids, const void* dout, void* scratch,
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  table: (V, D); ids: (n,)
-// int64; out: (n, D) in the table's dtype; all contiguous on the device
-// of `stream`.  vec16 = 1 only when D * itemsize is a multiple of 16 and
-// table and out are 16-byte aligned (the launcher checks).  Launch on
-// `stream`, neither synchronise nor allocate, return a cudaError_t value.
+// int64, read as ids - offset; out: (n, D) in the table's dtype; all
+// contiguous on the device of `stream`.  vec16 = 1 only when D * itemsize
+// is a multiple of 16 and table and out are 16-byte aligned (the
+// launcher checks).  Launch on `stream`, neither synchronise nor
+// allocate, return a cudaError_t value.
 extern "C" int onehot_gather_f32_launch(const void* table, const void* ids,
                                         void* out, long long n, long long V,
-                                        int D, int vec16, void* stream) {
-  return launch_rows<uint32_t>(table, ids, out, n, V, D, vec16, stream);
+                                        long long offset, int D, int vec16,
+                                        void* stream) {
+  return launch_rows<uint32_t>(table, ids, out, n, V, offset, D, vec16,
+                               stream);
 }
 
 extern "C" int onehot_gather_bf16_launch(const void* table, const void* ids,
                                          void* out, long long n, long long V,
-                                         int D, int vec16, void* stream) {
-  return launch_rows<uint16_t>(table, ids, out, n, V, D, vec16, stream);
+                                         long long offset, int D, int vec16,
+                                         void* stream) {
+  return launch_rows<uint16_t>(table, ids, out, n, V, offset, D, vec16,
+                               stream);
 }
 
 // The backward's entry points.  sorted, perm: (n,) int64, the flat ids
 // sorted stably and the positions they came from (torch.sort); dout:
 // (n, D) in the table's dtype; starts: (V + 1,) int64 scratch; dtable:
-// (V, D) out.  vec16 = 1 only when D * itemsize is a multiple of 16 and
-// dout and dtable are 16-byte aligned (the launcher checks).  Two
-// launches in order on `stream`; return a cudaError_t value.
+// (V, D) out, row v the sum for id v + offset.  vec16 = 1 only when D *
+// itemsize is a multiple of 16 and dout and dtable are 16-byte aligned
+// (the launcher checks).  Two launches in order on `stream`; return a
+// cudaError_t value.
 extern "C" int onehot_gather_grad_f32_launch(const void* sorted,
                                              const void* perm,
                                              const void* dout, void* starts,
                                              void* dtable, long long n,
-                                             long long V, int D, int vec16,
-                                             void* stream) {
-  return launch_grad<float>(sorted, perm, dout, starts, dtable, n, V, D,
-                            vec16, stream);
+                                             long long V, long long offset,
+                                             int D, int vec16, void* stream) {
+  return launch_grad<float>(sorted, perm, dout, starts, dtable, n, V, offset,
+                            D, vec16, stream);
 }
 
 extern "C" int onehot_gather_grad_bf16_launch(const void* sorted,
                                               const void* perm,
                                               const void* dout, void* starts,
                                               void* dtable, long long n,
-                                              long long V, int D, int vec16,
+                                              long long V, long long offset,
+                                              int D, int vec16,
                                               void* stream) {
-  return launch_grad<uint16_t>(sorted, perm, dout, starts, dtable, n, V, D,
-                               vec16, stream);
+  return launch_grad<uint16_t>(sorted, perm, dout, starts, dtable, n, V,
+                               offset, D, vec16, stream);
 }
 
 // The one-block path (n <= 2^14 ids, V <= 2^18 - 1: no id in range
-// packs to kNoKey).  ids: (n,) int64;
+// packs to kNoKey).  ids: (n,) int64, read as ids - offset;
 // dout: (n, D) in the table's dtype; scratch: ceil(V / 32) + 3 n + 2
 // int32; dtable: (V, D) out.  vec16 as above.  Two launches in order on
 // `stream`; return a cudaError_t value.
 extern "C" int onehot_gather_grad_block_f32_launch(
     const void* ids, const void* dout, void* scratch, void* dtable,
-    long long n, long long V, int D, int vec16, void* stream) {
-  return launch_grad_block<float>(ids, dout, scratch, dtable, n, V, D,
-                                  vec16, stream);
+    long long n, long long V, long long offset, int D, int vec16,
+    void* stream) {
+  return launch_grad_block<float>(ids, dout, scratch, dtable, n, V, offset,
+                                  D, vec16, stream);
 }
 
 extern "C" int onehot_gather_grad_block_bf16_launch(
     const void* ids, const void* dout, void* scratch, void* dtable,
-    long long n, long long V, int D, int vec16, void* stream) {
-  return launch_grad_block<uint16_t>(ids, dout, scratch, dtable, n, V, D,
-                                     vec16, stream);
+    long long n, long long V, long long offset, int D, int vec16,
+    void* stream) {
+  return launch_grad_block<uint16_t>(ids, dout, scratch, dtable, n, V,
+                                     offset, D, vec16, stream);
 }

@@ -2,7 +2,9 @@
 
 It replaces the TPU kernel ``repro/kernels/gather.py::onehot_gather_kernel``
 (kernel row 9): ``table[ids]`` with zero rows for ids outside ``[0, V)``,
-which is what the one-hot product ``onehot(ids) @ table`` computes.
+which is what the one-hot product ``onehot(ids) @ table`` computes;
+with a shard ``offset`` the kernels read ``ids - offset`` (a
+tensor-parallel rank's block of rows, no extra launch).
 :func:`launch_onehot_gather` checks what the kernel takes, launches the
 float32 or bfloat16 instance on PyTorch's current stream, counts the
 launch in :data:`repro_torch.kernels.backproject.LAUNCHES` (key
@@ -33,17 +35,17 @@ __all__ = ["BLOCK_MAX_N", "BLOCK_MAX_V", "GRAD_PATHS", "KEY_POS_BITS",
 _ENTRIES = {torch.float32: "onehot_gather_f32_launch",
             torch.bfloat16: "onehot_gather_bf16_launch"}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 _GRAD_ENTRIES = {torch.float32: "onehot_gather_grad_f32_launch",
                  torch.bfloat16: "onehot_gather_grad_bf16_launch"}
-_GRAD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [
+_GRAD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _BLOCK_ENTRIES = {torch.float32: "onehot_gather_grad_block_f32_launch",
                   torch.bfloat16: "onehot_gather_grad_block_bf16_launch"}
-_BLOCK_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [
+_BLOCK_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 # The one-block path packs an id and its position into one 32-bit key,
@@ -82,12 +84,12 @@ def grad_scratch_ints(N: int, V: int) -> int:
     return (V + 31) // 32 + 3 * N + 2
 
 
-def launch_onehot_gather(table: torch.Tensor,
-                         ids: torch.Tensor) -> torch.Tensor:
-    """``out[n] = table[ids[n]]``, zero rows for ids outside ``[0, V)``,
-    on the card.  ``table``: ``(V, D)`` float32 or bfloat16; ``ids``:
-    ``(N,)`` int64; both contiguous on one CUDA device.  Returns ``(N,
-    D)`` in the table's dtype."""
+def launch_onehot_gather(table: torch.Tensor, ids: torch.Tensor,
+                         offset: int = 0) -> torch.Tensor:
+    """``out[n] = table[ids[n] - offset]``, zero rows for ids outside
+    ``[offset, offset + V)``, on the card.  ``table``: ``(V, D)`` float32
+    or bfloat16; ``ids``: ``(N,)`` int64; both contiguous on one CUDA
+    device.  Returns ``(N, D)`` in the table's dtype."""
     if table.dtype not in _ENTRIES:
         raise TypeError(f"table is {table.dtype}; the kernel takes float32 "
                         f"or bfloat16")
@@ -112,7 +114,8 @@ def launch_onehot_gather(table: torch.Tensor,
     stream = torch.cuda.current_stream(table.device).cuda_stream
     with torch.cuda.device(table.device):
         rc = _lib(table.dtype)(table.data_ptr(), ids.data_ptr(),
-                               out.data_ptr(), N, V, D, int(vec16), stream)
+                               out.data_ptr(), N, V, int(offset), D,
+                               int(vec16), stream)
     if rc != 0:
         raise RuntimeError(f"onehot_gather kernel launch failed: CUDA "
                            f"error {rc}")
@@ -121,16 +124,16 @@ def launch_onehot_gather(table: torch.Tensor,
 
 
 def launch_onehot_gather_grad(ids: torch.Tensor, dout: torch.Tensor,
-                              V: int) -> torch.Tensor:
+                              V: int, offset: int = 0) -> torch.Tensor:
     """``d table`` ``(V, D)`` of the row gather on the card: row ``v`` the
     float32 sum, in position order, of the rows of ``dout`` whose id is
-    ``v``, rounded once to ``dout``'s dtype; zero where no id is ``v``;
-    ids outside ``[0, V)`` add nothing.  ``ids``: ``(N,)`` int64;
-    ``dout``: ``(N, D)`` float32 or bfloat16; both contiguous on one CUDA
-    device.  Up to :data:`BLOCK_MAX_N` ids one block sorts them and a row
-    writer writes the table; above, the ids are sorted here
-    (``torch.sort``, stable) and the search and walk kernels do the rest
-    (:func:`grad_path`)."""
+    ``v + offset``, rounded once to ``dout``'s dtype; zero where no id is
+    ``v + offset``; ids outside ``[offset, offset + V)`` add nothing.
+    ``ids``: ``(N,)`` int64; ``dout``: ``(N, D)`` float32 or bfloat16;
+    both contiguous on one CUDA device.  Up to :data:`BLOCK_MAX_N` ids
+    one block sorts them and a row writer writes the table; above, the
+    ids are sorted here (``torch.sort``, stable) and the search and walk
+    kernels do the rest (:func:`grad_path`)."""
     if dout.dtype not in _GRAD_ENTRIES:
         raise TypeError(f"dout is {dout.dtype}; the kernel takes float32 "
                         f"or bfloat16")
@@ -160,15 +163,16 @@ def launch_onehot_gather_grad(ids: torch.Tensor, dout: torch.Tensor,
                                   dtype=torch.int32, device=dout.device)
             rc = _lib(dout.dtype, "block")(
                 ids.data_ptr(), dout.data_ptr(), scratch.data_ptr(),
-                dtable.data_ptr(), N, V, D, int(vec16), stream)
+                dtable.data_ptr(), N, V, int(offset), D, int(vec16),
+                stream)
         else:
             sorted_ids, perm = torch.sort(ids, stable=True)
             starts = torch.empty((V + 1,), dtype=torch.int64,
                                  device=dout.device)
             rc = _lib(dout.dtype, "sort")(
                 sorted_ids.data_ptr(), perm.data_ptr(), dout.data_ptr(),
-                starts.data_ptr(), dtable.data_ptr(), N, V, D, int(vec16),
-                stream)
+                starts.data_ptr(), dtable.data_ptr(), N, V, int(offset), D,
+                int(vec16), stream)
     if rc != 0:
         raise RuntimeError(f"onehot_gather backward kernel launch failed: "
                            f"CUDA error {rc}")

@@ -15,8 +15,9 @@ onehot(ids)^T d out``, is the backward kernel on the card (row 9b,
 
 ``offset`` makes ``table`` rows ``[offset, offset + V)`` of a larger
 vocabulary (a tensor-parallel rank's block, :mod:`repro_torch.dist.tp`):
-the kernels see ``ids - offset``, whose ids outside the block give zero
-rows in the forward and are skipped in the backward.
+the kernels subtract it as they read each id (no launch of its own);
+ids outside the block give zero rows in the forward and are skipped in
+the backward.
 """
 
 from __future__ import annotations
@@ -39,14 +40,13 @@ def cuda_onehot_gather(table: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"table lies on {table.device}: the gather runs on "
                          f"a CUDA device or, as its plain version, the CPU")
     flat = ids.reshape(-1).to(device=table.device, dtype=torch.int64)
-    if offset:
-        flat = flat - offset
     if torch.is_grad_enabled() and table.requires_grad:
-        out = _OnehotGather.apply(table, flat)
+        out = _OnehotGather.apply(table, flat, offset)
     elif table.is_cuda:
-        out = launch_onehot_gather(table.contiguous(), flat.contiguous())
+        out = launch_onehot_gather(table.contiguous(), flat.contiguous(),
+                                   offset)
     else:
-        out = gather_ref(table, flat)
+        out = gather_ref(table, flat, offset)
     return out.reshape(tuple(ids.shape) + (table.shape[1],))
 
 
@@ -55,18 +55,20 @@ class _OnehotGather(torch.autograd.Function):
     9b), the plain versions on the CPU."""
 
     @staticmethod
-    def forward(ctx, table, ids):
+    def forward(ctx, table, ids, offset):
         ctx.save_for_backward(ids)
-        ctx.V = table.shape[0]
+        ctx.V, ctx.offset = table.shape[0], offset
         if table.is_cuda:
-            return launch_onehot_gather(table.contiguous(), ids.contiguous())
-        return gather_ref(table, ids)
+            return launch_onehot_gather(table.contiguous(), ids.contiguous(),
+                                        offset)
+        return gather_ref(table, ids, offset)
 
     @staticmethod
     def backward(ctx, dout):
         (ids,) = ctx.saved_tensors
         if dout.is_cuda:
             return (launch_onehot_gather_grad(ids.contiguous(),
-                                              dout.contiguous(), ctx.V),
-                    None)
-        return gather_grad_ref(ids, dout, ctx.V), None
+                                              dout.contiguous(), ctx.V,
+                                              ctx.offset),
+                    None, None)
+        return gather_grad_ref(ids, dout, ctx.V, ctx.offset), None, None

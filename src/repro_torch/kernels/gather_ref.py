@@ -4,7 +4,10 @@
 semantics of the TPU kernel ``repro/kernels/gather.py::onehot_gather_kernel``
 (a one-hot product), and of the CUDA kernel ``csrc/gather.cu``, which the
 card runs in its place.  :func:`gather_grad_ref` is the plain version
-of its backward (``csrc/gather.cu``'s row 9b).
+of its backward (``csrc/gather.cu``'s row 9b).  Both take the launchers'
+arguments, the shard ``offset`` included (``table`` is rows ``[offset,
+offset + V)`` of a larger vocabulary), so either stands in for its
+launcher.
 """
 
 from __future__ import annotations
@@ -14,24 +17,26 @@ import torch
 __all__ = ["gather_grad_ref", "gather_ref"]
 
 
-def gather_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` for any ids shape; zero rows where an id is outside
-    ``[0, V)``."""
+def gather_ref(table: torch.Tensor, ids: torch.Tensor,
+               offset: int = 0) -> torch.Tensor:
+    """``table[ids - offset]`` for any ids shape; zero rows where an id is
+    outside ``[offset, offset + V)``."""
     V = table.shape[0]
+    ids = ids - offset
     ok = (ids >= 0) & (ids < V)
     rows = table[ids.clamp(0, V - 1)]
     return rows.masked_fill(~ok[..., None], 0)
 
 
-def gather_grad_ref(ids: torch.Tensor, dout: torch.Tensor,
-                    V: int) -> torch.Tensor:
-    """``onehot(ids)^T dout``: ``(V, D)`` in ``dout``'s dtype, row ``v``
-    the sum of the rows of ``dout`` (``(N, D)``) whose id (``ids``,
-    ``(N,)``) is ``v``, zero where none is; ids outside ``[0, V)`` add
-    nothing.  Summed in float32 in position order (the k-th hit of every
+def gather_grad_ref(ids: torch.Tensor, dout: torch.Tensor, V: int,
+                    offset: int = 0) -> torch.Tensor:
+    """``onehot(ids - offset)^T dout``: ``(V, D)`` in ``dout``'s dtype, row
+    ``v`` the sum of the rows of ``dout`` (``(N, D)``) whose id (``ids``,
+    ``(N,)``) is ``v + offset``, zero where none is; ids outside
+    ``[offset, offset + V)`` add nothing.  Summed in float32 in position order (the k-th hit of every
     row in pass k, so no row is added to twice in one pass and the order
     holds on any device) and rounded once, as the kernel sums."""
-    ids = ids.reshape(-1).to(device=dout.device, dtype=torch.int64)
+    ids = ids.reshape(-1).to(device=dout.device, dtype=torch.int64) - offset
     ok = (ids >= 0) & (ids < V)
     D = dout.shape[-1]
     idx, rows = ids[ok], dout.reshape(ids.shape[0], D)[ok].float()

@@ -10,10 +10,11 @@ reference's flags and defaults (``--arch chatglm3-6b``, 100 steps of 8 x
 As the reference's, it trains under ``make_local_mesh()`` (every rank
 of the world on the ``data`` axis), or ``make_production_mesh()`` with
 ``--production-mesh``, with ``ShardingRules(batch=("pod", "data"),
-fsdp=("data",))``: the parameters placed by ``param_specs`` under the
-sharding context, the batch split over ``data``.  A world of one is a
-1x1 mesh (NCCL on the card, gloo on the CPU), which runs the one-device
-step exactly; a larger world comes from the environment
+fsdp=("data",))``: each parameter placed by its logical axes as it is
+drawn (``init_model(mesh=, rules=)``), the batch split over ``data``.
+A world of one is a 1x1 mesh (NCCL on the card, gloo on the CPU),
+which runs the one-device step exactly; a larger world comes from the
+environment
 (:func:`repro_torch.launch.mesh.init_world`: ``torchrun``'s variables,
 or ``REPRO_TORCH_INIT_METHOD``, e.g. ``file:///path``).
 
@@ -41,7 +42,7 @@ from ..dist import fsdp
 from ..dist.sharding import (ShardingRules, logical_to_spec,
                              sharding_context)
 from ..ft.manager import FaultTolerantLoop, run_with_restarts
-from ..models.model import init_model, param_specs
+from ..models.model import init_model
 from ..training import AdamWConfig, init_opt_state, make_train_step
 from .mesh import init_world, make_local_mesh, make_production_mesh
 
@@ -119,12 +120,13 @@ def _train(args, dev, mesh):
     step_fn = make_train_step(cfg, opt_cfg, moe_impl=args.moe_impl,
                               remat=True, accum_steps=args.accum_steps,
                               update_times=update_s)
-    specs = param_specs(cfg)
     collectives = []
 
     def init_fn():
-        params = init_model(cfg, seed=0, device=dev).requires_grad_(True)
-        fsdp.place_params(params, specs, mesh, rules)
+        # Each parameter is placed as it is drawn: a rank never holds the
+        # whole model.
+        params = init_model(cfg, seed=0, device=dev, mesh=mesh,
+                            rules=rules).requires_grad_(True)
         return {"params": params, "opt": init_opt_state(params, opt_cfg)}
 
     def train_one(state, step):

@@ -40,8 +40,10 @@ leading ``"null"``: the port keeps one module per layer, not a stack.
 
 **Under a mesh.**  Inside a :func:`repro_torch.dist.sharding_context`
 whose mesh has more than one rank, every entry point runs SPMD, data
-parallel over the ``batch`` axes with the parameters placed by
-:func:`repro_torch.dist.place_params` (ZeRO-3 over ``fsdp``):
+parallel over the ``batch`` axes with the parameters placed (ZeRO-3
+over ``fsdp``) as they are drawn, by :func:`init_model` with ``mesh=``,
+or, for parameters converted from the reference, afterwards by
+:func:`repro_torch.dist.place_params`:
 
 * each rank takes its block of the batch's rows (they must divide the
   batch shards; the reference would replicate a batch that does not);

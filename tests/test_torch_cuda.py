@@ -1157,11 +1157,13 @@ def test_row_gather_with_a_shard_offset(dev, dtype, V, D, n):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,inside", [(512, 0.5), (8192, 0.5),
-                                      (512, 0.05), (4096, 0.0)])
+                                      (512, 0.05), (4096, 0.0),
+                                      (32768, 0.5)])
 def test_gather_backward_with_most_ids_out_of_range(dev, dtype, n, inside):
     """Row 9b through the autograd path on a rank's block of xlstm-125m's
     vocabulary (25152 of 50304 rows, offset 25152): about half, a
-    twentieth or none of the ids in the block.  Bitwise its plain version
+    twentieth or none of the ids in the block; 32768 ids take the sort
+    path, whose row search adds the offset.  Bitwise its plain version
     on ``ids - offset``; rows no id hits are zero."""
     from repro_torch.kernels.gather_kernel_ops import cuda_onehot_gather
     from repro_torch.kernels.gather_ref import gather_grad_ref

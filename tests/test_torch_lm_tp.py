@@ -212,11 +212,11 @@ def refusals(mesh):
                        ("chatglm3-6b", {"d_ff": 127}),
                        ("xlstm-125m", {"n_heads": 1})):
         cfg = dataclasses.replace(ARCHS[arch].reduced(), **over)
-        model = M.init_model(cfg, seed=0, device="cpu")
+        model = M.init_model(cfg, seed=0, device="cpu", mesh=mesh,
+                             rules=rules)
         toks = np.zeros((2, 4), dtype=np.int64)
         try:
             with torch.no_grad(), sharding_context(mesh, rules):
-                place_params(model, M.param_specs(cfg), mesh, rules)
                 M.forward(model, cfg, {"tokens": toks}, remat=False)
             out[json.dumps(over)] = "no error"
         except ValueError as e:

@@ -719,22 +719,26 @@ def slstm_bwd_turns(trees: dict, outdir: pathlib.Path, reps: int,
     return rec
 
 
-def _gather_grad_launcher(lib):
+def _gather_grad_launcher(lib, offset: bool):
     """The gather backward of one tree's library as that tree's launcher
     runs it, ``(ids, dout, V) -> d table``: the one-block sort where the
     library has it and :func:`repro_torch.kernels.gather.grad_path`
-    chooses it, else ``torch.sort`` and the two kernels."""
+    chooses it, else ``torch.sort`` and the two kernels.  ``offset``:
+    the tree's entry points take a shard offset after ``V`` (passed 0)."""
     import torch
 
     P_, I_, L_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    longs = 3 if offset else 2
+    extra = (0,) if offset else ()
     sort, block = {}, {}
     for dt, n in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         fn = getattr(lib, f"onehot_gather_grad_{n}_launch")
-        fn.argtypes, fn.restype = [P_] * 5 + [L_] * 2 + [I_, I_, P_], I_
+        fn.argtypes, fn.restype = [P_] * 5 + [L_] * longs + [I_, I_, P_], I_
         sort[dt] = fn
         if hasattr(lib, f"onehot_gather_grad_block_{n}_launch"):
             fn = getattr(lib, f"onehot_gather_grad_block_{n}_launch")
-            fn.argtypes, fn.restype = [P_] * 4 + [L_] * 2 + [I_, I_, P_], I_
+            fn.argtypes, fn.restype = [P_] * 4 + [L_] * longs + [
+                I_, I_, P_], I_
             block[dt] = fn
 
     def launch(ids, dout, V):
@@ -752,14 +756,15 @@ def _gather_grad_launcher(lib):
                                   dtype=torch.int32, device=dout.device)
             rc = block[dout.dtype](ids.data_ptr(), dout.data_ptr(),
                                    scratch.data_ptr(), dtable.data_ptr(), N,
-                                   V, D, vec16, stream)
+                                   V, *extra, D, vec16, stream)
         else:
             sorted_ids, perm = torch.sort(ids, stable=True)
             starts = torch.empty((V + 1,), dtype=torch.int64,
                                  device=dout.device)
             rc = sort[dout.dtype](sorted_ids.data_ptr(), perm.data_ptr(),
                                   dout.data_ptr(), starts.data_ptr(),
-                                  dtable.data_ptr(), N, V, D, vec16, stream)
+                                  dtable.data_ptr(), N, V, *extra, D, vec16,
+                                  stream)
         if rc:
             raise RuntimeError(f"gather backward launch failed: {rc}")
         return dtable
@@ -777,9 +782,13 @@ def gather_grad_turns(trees: dict, outdir: pathlib.Path, reps: int) -> dict:
 
     from repro_torch.kernels.gather_ref import gather_grad_ref
 
-    launchers = {label: _gather_grad_launcher(_load(tree, "gather", outdir,
-                                                    label))
-                 for label, tree in trees.items()}
+    def takes_offset(tree):
+        src = tree / "src" / "repro_torch" / "kernels" / "csrc" / "gather.cu"
+        return "long long V, long long offset" in src.read_text()
+
+    launchers = {label: _gather_grad_launcher(
+        _load(tree, "gather", outdir, label), takes_offset(tree))
+        for label, tree in trees.items()}
     labels = list(trees)
     order = labels + labels[::-1]
     dev = torch.device("cuda", 0)
