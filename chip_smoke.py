@@ -76,8 +76,14 @@ one-rank runs, rows 9, 9b, 10 and 10b launched on every rank at the
 split shapes and held there to their plain versions; jamba-v0.1-52b one
 period deep in float32 under ``tp=ep``; chatglm3-6b at 4 layers under
 ``sp_act``, its logits, loss and gradient norm against one rank; then
-the four kernels timed at a rank's shapes.  Any failed check exits
-non-zero.  The
+the four kernels timed at a rank's shapes.  Last, the analysis tools
+(phase 18): ``python -m repro_torch.analysis.lint`` on this checkout
+(four passes, exit 0) and on a planted fixture (exit 1), one served
+chatglm3-6b decode call traced op by op (each kernel op counted as its
+launches, the roofline's memory term beside the weight-bytes floor and
+the call's profiled device time), a row-1 fold whose traced byte term
+is its bound, and one dry-run cell on fake tensors.  Any failed check
+exits non-zero.  The
 last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the JSON record of
 every kernel of the path.  Needs one CUDA card; imports nothing of JAX
@@ -107,24 +113,13 @@ import torch.nn.functional as F
 
 _SRC = pathlib.Path(__file__).resolve().parent / "src"
 
-# Card peaks for the bound (H100 SXM data sheet): FP32 outside the
-# tensor cores, and HBM3 bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_S = 3.35e12
+# The card's peaks and each kernel's operations and bytes (the bound
+# column's terms) live in repro_torch/analysis/census.py: census().
 L2_BYTES = 50 * 2**20
 SMEM_PER_SM = 228 * 1024    # shared memory an SM gives its blocks
 
-# Per-voxel float operations of the kernel: 6 for the voxel's world
-# coordinates, 37 per projection (three 3x4 rows, the reciprocal, the
-# taps' fractions, the bilinear blend, the 1/w^2 weight, the add), and
-# on the int8 wire 2 more per tap for the decode (code * scale + offset).
-FLOPS_PER_VOXEL = 6
-FLOPS_PER_VOXEL_PROJ = 37
-WIRE_FLOPS_PER_VOXEL_PROJ = {"float32": 0, "bfloat16": 0, "int8": 4 * 2}
+# Bytes per element of each projection wire.
 WIRE_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
-# Row encoder: per pixel 2 operations for the range (pass 1) and 9 for
-# the error-feedback step (add, sub, div, round, 2 clamps, mul, add, sub).
-QUANT_FLOPS_PER_PIXEL = 11
 
 SEED = 0
 N_CHECK = 8               # projections of the full-width kernel check
@@ -175,10 +170,6 @@ SLSTM_SHAPES = ((1, 1), (4, 1), (1, 512), (8, 512), (8, 2048))   # (B, S)
 # gate of 1 - 6e-6.
 SLSTM_LONG = (8, 2048, 12.0)
 SLSTM_TOL = 2e-4         # rtol = atol: the reference's kernel test's
-# Operations of one sLSTM step per feature, a transcendental counted as
-# one: 4 r·h products and 4 adds, tanh, sigmoid (3), softplus (6), the
-# stabiliser (4), two exponentials, c (3), n (2), h (3).
-SLSTM_FLOPS_PER_STEP = 32
 LM_SLOTS, LM_MAX_LEN = 4, 1024
 LM_REQUESTS, LM_MAX_TOKENS = 8, 32
 LM_PROMPT = (64, 512)               # prompt lengths, inclusive
@@ -285,23 +276,6 @@ CHECK_PERIODS = 2
 # 15c: chatglm3-6b through the launcher's defaults, GLM_TRAIN_STEPS
 # steps, no checkpoint.
 GLM_TRAIN_STEPS = 3
-# Operations of one step of slstm_backward_kernel per (batch row,
-# feature), counted from its body as SLSTM_FLOPS_PER_STEP is (a
-# transcendental or a division as one; negations and |x| as none, being
-# operand modifiers; a tie test of max as its two comparisons): the
-# recomputation 27 (z 3, i 2, f 2, o 5, log f 4, a 1, m 1, the two
-# exponentials 4, c 3, n 2), the derivative 59 (dH 1, max(n', 1e-6) 1,
-# do 2, dc' 3, d max(n', 1e-6) 4, dn' 4, d ea 3, d eb 2, dz dc dn dA dB
-# 5, dm' 2, da 4, di 4, df 3, dz' 3, do' 3, the four d r sums 8, dh 7).
-SLSTM_BWD_FLOPS_PER_STEP = 27 + 59
-# What the chunked scan does beyond them, counted from its body the same
-# way (a multiply-add as two), per token and feature: phase 1 carries the
-# step through the map's four columns (map_step, 25 each) and its vector
-# (26), and phase 3 derives the step's coefficients a second time from
-# the values phase 1 stored (coefs, 29); per chunk, phase 2's hop (16
-# multiply-adds, 32).
-SLSTM_BWD_COMPOSE_FLOPS_PER_STEP = 4 * 25 + 26 + 29
-SLSTM_BWD_HOP_FLOPS = 32
 
 
 def fail(msg: str) -> None:
@@ -316,28 +290,28 @@ def card_line() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def census():
+    """The port's census module (``repro_torch.analysis.census``): the
+    card's peaks and each kernel's operations and bytes, the terms of
+    every bound here and of the kernel ops' flop formulas."""
+    from repro_torch.analysis import census as c
+    return c
+
+
 def bound_ms(L: int, nz: int, P: int, rows: int, cols: int,
              wire: str = "float32"):
-    """Least time for one launch: the larger of bytes over HBM rate (volume
-    read and written once, each image, scale block and matrix read once)
-    and FLOPs over the FP32 peak."""
-    vox = nz * L * L
-    nbytes = (2 * vox * 4 + P * rows * cols * WIRE_BYTES[wire] + P * 48
-              + (P * 2 * rows * 4 if wire == "int8" else 0))
-    flops = vox * (FLOPS_PER_VOXEL + (FLOPS_PER_VOXEL_PROJ
-                                      + WIRE_FLOPS_PER_VOXEL_PROJ[wire]) * P)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """Least time for one back-projection launch: the larger of bytes over
+    HBM rate (volume read and written once, each image, scale block and
+    matrix read once) and FLOPs over the FP32 peak."""
+    c = census()
+    return c.bound_ms(*c.backproject_terms(L, nz, P, rows, cols, wire))
 
 
 def quant_bound_ms(P: int, rows: int, cols: int):
     """Least time of one row-encoder launch: pixels read as float32 and
     written as int8 once, and the (P, 2, rows) block written once."""
-    t_bytes = (P * rows * cols * 5 + P * rows * 8) / PEAK_BYTES_S
-    t_ops = P * rows * cols * QUANT_FLOPS_PER_PIXEL / PEAK_FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    c = census()
+    return c.bound_ms(*c.quant_terms(P, rows, cols))
 
 
 def time_ms(fn, reps: int) -> float:
@@ -1376,10 +1350,18 @@ def device_times(fn, inner: int = 20, reps: int = 5) -> list[float]:
     return times
 
 
-def bytes_bound(nbytes: float, flops: float = 0.0):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def gather_bound(N: int, D: int, itemsize: int, inside: int | None = None):
+    """Row 9's least time: the ids read, the rows written, and the rows
+    whose ids fall in the table read once."""
+    c = census()
+    return c.bound_ms(*c.gather_terms(N, D, itemsize, inside))
+
+
+def gather_grad_bound(N: int, V: int, D: int, itemsize: int):
+    """Row 9b's least time: the ids and ``dout`` read, ``d table`` written
+    once."""
+    c = census()
+    return c.bound_ms(*c.gather_backward_terms(N, V, D, itemsize))
 
 
 def check_gather(cfg, dev, dtypes=(torch.bfloat16, torch.float32),
@@ -1428,7 +1410,7 @@ def check_gather(cfg, dev, dtypes=(torch.bfloat16, torch.float32),
             plain = per_call_ms(lambda: gather_ref(table, next(ring)), 20)
             clamped = itertools.cycle([i.clamp(0, V - 1) for i in sets])
             lib = device_ms(lambda: F.embedding(next(clamped), table))
-            bms, by = bytes_bound(2 * N * D * table.element_size() + N * 8)
+            bms, by = gather_bound(N, D, table.element_size())
             print(f"  {name} N={N}: max|d| {err} vs plain, = F.embedding "
                   f"on in-range ids; {ms:.5f} ms per launch on the device "
                   f"(bound {bms:.5f}, {by}), {paced:.5f} ms back to back "
@@ -1475,8 +1457,8 @@ def retime_gather(kernel, library, name: str, N: int) -> dict:
 def slstm_bound(B: int, S: int, di: int):
     """zifo read (16 B), h written (4 B) per token and feature, the two
     states and r once; the operations over the FP32 peak."""
-    nbytes = B * S * di * 20 + 2 * 4 * B * di * 4 + 4 * di * 4
-    return bytes_bound(nbytes, B * S * di * SLSTM_FLOPS_PER_STEP)
+    c = census()
+    return c.bound_ms(*c.slstm_terms(B, S, di))
 
 
 def slstm_chain_floor() -> dict:
@@ -1922,7 +1904,7 @@ def serve_full(cfg, dev, phase: int, fwd_label: str, fwd_shape,
     n_params = sum(p.numel() for p in model.parameters())
     total = sum(p.numel() * p.element_size() for p in model.parameters())
     wbytes = total - model.embed.numel() * model.embed.element_size()
-    floor_ms = 1e3 * wbytes / PEAK_BYTES_S
+    floor_ms = 1e3 * wbytes / census().PEAK_BYTES_S
     kinds = [cfg.block_pattern[i % cfg.period] for i in range(cfg.n_layers)]
     moe_at = [i for i in range(cfg.n_layers) if cfg.moe_at(i % cfg.period)]
     print(f"  {cfg.name}: {n_params / 1e9:.4f} B parameters "
@@ -1937,7 +1919,7 @@ def serve_full(cfg, dev, phase: int, fwd_label: str, fwd_shape,
              f"{moe_at}" if moe_at else "")
           + f"; a decode call reads {wbytes / 1e9:.2f} GB of weights (all "
           f"but the embedding): floor {floor_ms:.3f} ms at "
-          f"{PEAK_BYTES_S / 1e12:.2f} TB/s")
+          f"{census().PEAK_BYTES_S / 1e12:.2f} TB/s")
     print(f"phase {phase}a: served, greedy")
     prompts = lm_prompts(cfg)
     runs = served_runs(cfg, model, prompts, [0.0] * len(prompts), dev)
@@ -2808,12 +2790,10 @@ def slstm_bwd_bound(B: int, S: int, di: int, chunk: int):
     forward writes for it (12 B), and the operations of the chunked
     scan's composition and second pass over the coefficients (chunks of
     ``chunk`` tokens)."""
-    nbytes = B * S * di * 36 + 4 * B * di * 4 + 2 * 4 * di * 4
-    flops = B * S * di * SLSTM_BWD_FLOPS_PER_STEP + B * 4 * di
-    ms, by = bytes_bound(nbytes, flops)
-    extra_flops = B * di * (S * SLSTM_BWD_COMPOSE_FLOPS_PER_STEP
-                            + -(-S // chunk) * SLSTM_BWD_HOP_FLOPS)
-    return ms, by, B * S * di * (16 + 12), extra_flops
+    c = census()
+    ms, by = c.bound_ms(*c.slstm_backward_terms(B, S, di))
+    extra_flops, extra_bytes = c.slstm_backward_extra(B, S, di, chunk)
+    return ms, by, extra_bytes, extra_flops
 
 
 def check_slstm_backward(cfg, dev) -> dict:
@@ -2904,9 +2884,10 @@ def check_slstm_backward(cfg, dev) -> dict:
               f"{ms:.5f} ms per launch on the device (bound {bms:.5f}, "
               f"{by}; the design's extra {extra / 1e6:.1f} MB read here "
               f"and written by the training forward, "
-              f"{1e3 * extra / PEAK_BYTES_S:.5f} ms at the HBM rate, and "
+              f"{1e3 * extra / census().PEAK_BYTES_S:.5f} ms at the HBM "
+              f"rate, and "
               f"{extra_ops / 1e9:.3f} GFLOP of composition and second "
-              f"pass, {1e3 * extra_ops / PEAK_FP32_FLOPS:.5f} ms "
+              f"pass, {1e3 * extra_ops / census().PEAK_FP32_FLOPS:.5f} ms "
               f"at the FP32 peak); parts "
               + ", ".join(f"{k} {t * 1e3:.2f} us x{c:g}" for k, t, c in parts)
               + f"; training forward {fwd_ms:.5f} ms, served forward "
@@ -2917,10 +2898,10 @@ def check_slstm_backward(cfg, dev) -> dict:
                        "served_forward_ms": served_ms, "plain_ms": plain,
                        "bound_ms": bms, "bound_by": by,
                        "design_extra_bytes": extra,
-                       "design_extra_ms": 1e3 * extra / PEAK_BYTES_S,
+                       "design_extra_ms": 1e3 * extra / census().PEAK_BYTES_S,
                        "design_extra_flops": extra_ops,
                        "design_extra_ops_ms":
-                           1e3 * extra_ops / PEAK_FP32_FLOPS}
+                           1e3 * extra_ops / census().PEAK_FP32_FLOPS}
         del zifo, dhs, hs, states, dz, dz2, want_z
     return res
 
@@ -3015,8 +2996,7 @@ def check_gather_backward(tables, dev) -> dict:
                     5 if N > 512 or D > 1024 else 20)
                 plain = per_call_ms(lambda: gather_grad_ref(ids, dout, V), 2,
                                     reps=3)
-                bms, by = bytes_bound((V + N) * D * dout.element_size()
-                                      + N * 8)
+                bms, by = gather_grad_bound(N, V, D, dout.element_size())
                 print(f"  9b {name} V={V} D={D} N={N}: "
                       f"{'max|d| ' + str(err) if dtype == torch.float32 else f'{err:.3f} ulp'}"
                       f" vs the ordered float32 sum (bitwise the plain "
@@ -4343,8 +4323,7 @@ def time_split_kernels(xcfg, glm, dev) -> dict:
                        inner)
         lib = device_ms(lambda: F.embedding(clamped, table), inner)
         plain = per_call_ms(lambda: gather_ref(table, local), 2, reps=3)
-        bms, by = bytes_bound(N * D * dtype.itemsize + N * 8
-                              + int(inside.sum()) * D * dtype.itemsize)
+        bms, by = gather_bound(N, D, dtype.itemsize, int(inside.sum()))
         # The launch the kernels' offset saves: ids - offset on its own.
         sub = device_ms(lambda: ids - V, inner)
         out["row9"][key] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
@@ -4356,7 +4335,7 @@ def time_split_kernels(xcfg, glm, dev) -> dict:
             dout, clamped, V, -1, False), inner)
         plain = per_call_ms(lambda: gather_grad_ref(local, dout, V), 2,
                             reps=3)
-        bms, by = bytes_bound((V + N) * D * dtype.itemsize + N * 8)
+        bms, by = gather_grad_bound(N, V, D, dtype.itemsize)
         out["row9b"][key] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
                              "bound_ms": bms, "bound_by": by,
                              "inside": float(inside.float().mean())}
@@ -4618,6 +4597,221 @@ def check_tp_train(cfg, dev, tmp: pathlib.Path, base: dict,
     return out
 
 
+# ----------------------------------------------------------------------
+# The analysis tools (phase 18)
+# ----------------------------------------------------------------------
+
+# 18b: row 1's bound at a served fold (P = PBATCH at L = 512) as PERF.md's
+# kernel table records it; the census's byte term of the same launch
+# must equal it, being the same formula.
+ROW1_TABLE_BOUND_MS = "0.3263"
+# 18c: the dry-run cell.  A tool that outlasts TOOL_TIMEOUT_S fails.
+DRYRUN_CELL = ("chatglm3-6b", "decode_32k", "pod")
+TOOL_TIMEOUT_S = 240
+
+
+def run_tool(module: str, args: list) -> tuple[int, str]:
+    """``python -m <module> <args>`` from the checkout, on the host;
+    (exit code, standard output).  Any exit but 0 and 1 fails."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(_SRC)] + ([os.environ["PYTHONPATH"]]
+                       if os.environ.get("PYTHONPATH") else [])))
+    proc = subprocess.run([sys.executable, "-m", module, *args],
+                          capture_output=True, text=True, env=env,
+                          cwd=_SRC.parent, timeout=TOOL_TIMEOUT_S)
+    if proc.returncode not in (0, 1):
+        fail(f"{module} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    return proc.returncode, proc.stdout
+
+
+def check_lint() -> dict:
+    """18a: the contract checker on this checkout exits 0 with its four
+    passes, each of which checked something; gather.cu with one argument
+    of an entry point dropped, given as a fixture, exits 1 and names
+    the entry."""
+    rc, out = run_tool("repro_torch.analysis.lint", [])
+    rep = json.loads(out)
+    checked = {p["pass"]: p["checked"] for p in rep["passes"]}
+    if rc != 0 or not rep["ok"] or set(checked) != {
+            "ledger", "budget", "hygiene", "cache"} \
+            or min(checked.values()) <= 0:
+        fail(f"18a: the lint exited {rc} with findings {rep['findings']} "
+             f"and checked {checked}")
+    text = (_SRC / "repro_torch" / "kernels" / "csrc" / "gather.cu") \
+        .read_text()
+    head = text.index('extern "C" int onehot_gather_f32_launch(')
+    cut = text.index("long long offset,", head)
+    planted = text[:cut] + text[cut + len("long long offset,"):]
+    with tempfile.TemporaryDirectory() as d:
+        fixture = pathlib.Path(d) / "gather_dropped_offset.cu"
+        fixture.write_text(planted)
+        rc2, out2 = run_tool("repro_torch.analysis.lint",
+                             ["--passes", "ledger", "--kernel-fixture",
+                              str(fixture)])
+    found = [f for f in json.loads(out2)["findings"]
+             if f["rule"] == "entry-signature-mismatch"
+             and "onehot_gather_f32_launch" in f["detail"]]
+    if rc2 != 1 or not found:
+        fail(f"18a: the planted fixture exited {rc2}, findings {out2}")
+    print(f"  lint: exit 0, checked {checked}; gather.cu with "
+          f"onehot_gather_f32_launch's offset dropped: exit 1, "
+          f"{found[0]['detail']}")
+    return {"checked": checked, "planted": found[0]}
+
+
+def traced(fn):
+    """``fn()`` under an OpTrace, synchronised; returns (its result, the
+    trace, each kernel op's count, each LAUNCHES key's delta)."""
+    from repro_torch.analysis.trace import OpTrace
+    from repro_torch.kernels import LAUNCHES
+
+    torch.cuda.synchronize()
+    before = dict(LAUNCHES)
+    with OpTrace() as tr:
+        out = fn()
+    torch.cuda.synchronize()
+    ops = {k.removeprefix("repro_torch."): v for k, v in tr.counts().items()
+           if k.startswith("repro_torch.")}
+    delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+             if LAUNCHES[k] != before[k]}
+    return out, tr, ops, delta
+
+
+def check_census(cfg, dev) -> dict:
+    """18b: one decode call of ``cfg`` (chatglm3-6b, bfloat16, full width,
+    SEED) as phase 12's ServingEngine makes it with gather_impl="onehot",
+    traced: each kernel op's count equal to its launches (row 9 once),
+    the memory term of the roofline beside the weight-bytes floor and the
+    same call's profiled device time; and one row-1 fold at L = 512, P =
+    PBATCH, whose byte term must be PERF.md's bound."""
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.analysis.trace import analyze_trace
+    from repro_torch.core.geometry import Geometry, projection_matrices
+    from repro_torch.kernels.backproject import launch_backproject
+    from repro_torch.models import init_model
+    from repro_torch.serving import Request, ServingEngine
+
+    c = census()
+    model = init_model(cfg, seed=SEED, device=dev)
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters()) \
+        - model.embed.numel() * model.embed.element_size()
+    floor_ms = 1e3 * wbytes / c.PEAK_BYTES_S
+    eng = ServingEngine(dataclasses.replace(cfg, gather_impl="onehot"),
+                        model, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                        seed=SEED, device=dev)
+    for i, prompt in enumerate(lm_prompts(cfg)[:LM_SLOTS]):
+        eng.submit(Request(rid=i, prompt=prompt, max_tokens=4))
+    calls = []
+    orig = engine_mod._masked_decode_step
+
+    def first_traced(*a):
+        if calls:
+            return orig(*a)
+        out, tr, ops, delta = traced(lambda: orig(*a))
+        calls.append((a, tr, ops, delta))
+        return out
+
+    with patched(engine_mod, "_masked_decode_step", first_traced):
+        eng.step()
+    args, tr, ops, delta = calls[0]
+    if ops != {"onehot_gather": 1} or delta != {"onehot_gather": 1}:
+        fail(f"18b: the decode call's kernel ops {ops}, its launches "
+             f"{delta}")
+    cost = analyze_trace(tr)
+    roof = c.roofline_terms(cost["flops"], cost["bytes"],
+                            cost["collectives"]["total"])
+    prof = profiled_call(lambda: orig(*args))
+    print(f"  a decode call ({LM_SLOTS} slots, index {args[4]}): "
+          f"{len(tr.records)} ops dispatched, {cost['census']}; kernel ops "
+          f"{ops} = launches {delta}; traced {cost['bytes'] / 1e9:.3f} GB "
+          f"and {cost['flops'] / 1e9:.3f} GFLOP: memory term "
+          f"{1e3 * roof['memory_s']:.3f} ms, compute term "
+          f"{1e3 * roof['compute_s']:.4f} ms (bf16 peak); the weight-bytes "
+          f"floor {floor_ms:.3f} ms; profiled "
+          + ("device time not measured" if prof["device_ms"] is None else
+             f"{prof['device_ms']:.3f} ms on the device")
+          + f", {prof['wall_ms']:.3f} ms wall, {prof['kernels']:.0f} kernels")
+    del eng, model, args, calls
+    free(dev)
+
+    geom = Geometry()
+    P, rows, cols = PBATCH, geom.n_v + 2, geom.n_u + 2
+    vol = torch.zeros((geom.L,) * 3, dtype=torch.float32, device=dev)
+    padded = torch.zeros((P, rows, cols), dtype=torch.float32, device=dev)
+    mats = torch.as_tensor(np.asarray(projection_matrices(geom))[:P],
+                           dtype=torch.float32, device=dev).contiguous()
+    _, tr1, ops1, delta1 = traced(lambda: launch_backproject(
+        vol, padded, mats, z0=0, O=geom.O, MM=geom.MM))
+    (rec,) = [r for r in tr1.records if r.name == "repro_torch.backproject"]
+    term_ms = 1e3 * c.roofline_terms(0, rec.bytes, 0)["memory_s"]
+    bms, by = bound_ms(geom.L, geom.L, P, rows, cols)
+    if ops1 != {"backproject": 1} or delta1 != {"backproject": 1} \
+            or term_ms != bms or f"{term_ms:.4f}" != ROW1_TABLE_BOUND_MS:
+        fail(f"18b: row 1's fold traced as {ops1} (launches {delta1}), "
+             f"byte term {term_ms} ms against the bound {bms} ms and the "
+             f"table's {ROW1_TABLE_BOUND_MS}")
+    print(f"  row 1, one fold at L={geom.L}, P={P}: {rec.bytes} B, "
+          f"{rec.flops} operations traced; byte term {term_ms:.6f} ms = "
+          f"the bound {bms:.6f} ms ({by}; PERF.md: {ROW1_TABLE_BOUND_MS})")
+    del vol, padded
+    free(dev)
+    return {"decode_call": {"ops": ops, "launches": delta,
+                            "dispatched": len(tr.records), "cost": cost,
+                            "roofline": roof, "floor_ms": floor_ms,
+                            "profiled": prof},
+            "row1_fold": {"bytes": rec.bytes, "flops": rec.flops,
+                          "term_ms": term_ms, "bound_ms": bms}}
+
+
+def check_dryrun() -> dict:
+    """18c: one dry-run cell through ``python -m repro_torch.launch.dryrun``
+    on the host (fake tensors, a fake world of 256 ranks); it must
+    record ``"status": "ok"``."""
+    arch, shape, mesh = DRYRUN_CELL
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        rc, out = run_tool("repro_torch.launch.dryrun",
+                           ["--arch", arch, "--shape", shape, "--mesh", mesh,
+                            "--out", d])
+        wall = time.perf_counter() - t0
+        path = pathlib.Path(d) / f"{arch}__{shape}__{mesh}.json"
+        rec = json.loads(path.read_text()) if path.is_file() else {}
+    if rc != 0 or rec.get("status") != "ok":
+        fail(f"18c: the dry run exited {rc}: {out[-2000:]} "
+             f"{rec.get('error')} {rec.get('traceback', '')[-2000:]}")
+    ro, mem = rec["roofline"], rec["memory"]
+    print(f"  {out.strip().splitlines()[-1]}")
+    print(f"  {arch} {shape} {mesh}: {wall:.1f} s ({rec['trace_s']} s "
+          f"traced); a rank's flops {rec['cost']['flops_per_device']:.4e}, "
+          f"bytes {rec['cost']['bytes_accessed_per_device']:.4e}, "
+          f"collective bytes "
+          f"{rec['cost']['collective_bytes_per_device']['total']}; "
+          f"compute {ro['compute_s']:.3e} s, memory {ro['memory_s']:.3e} s, "
+          f"collective {ro['collective_s']:.3e} s ({ro['dominant']}); live "
+          f"{mem['live_bytes'] / 1e9:.2f} GB; {rec['kv_layout']}")
+    return {"record": rec, "wall_s": wall}
+
+
+def run_analysis(glm_cfg, dev, card: str) -> dict:
+    """Phase 18: the lint, the census and one dry-run cell; returns the
+    phase's launches by kernel record name."""
+    t0 = time.perf_counter()
+    print("phase 18a: python -m repro_torch.analysis.lint on this checkout")
+    lint = check_lint()
+    print(f"phase 18b: the census of a served {glm_cfg.name} decode call "
+          f"(onehot) and of a row-1 fold")
+    cen = check_census(glm_cfg, dev)
+    print(f"phase 18c: python -m repro_torch.launch.dryrun "
+          f"{' '.join(DRYRUN_CELL)}")
+    dry = check_dryrun()
+    phase_s = time.perf_counter() - t0
+    print(f"  phase 18 took {phase_s:.1f} s")
+    print(json.dumps({"phase18": {"card": card, "seconds": phase_s,
+                                  "lint": lint, "census": cen,
+                                  "dryrun": dry}}))
+    return {"onehot_gather": 1, "backproject_batch": 1}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4678,6 +4872,10 @@ def main() -> int:
         if entry["name"] in tp_launches:
             entry["tp_launches"] = tp_launches[entry["name"]]
             entry["tp_split_shapes"] = tp_times[rows[entry["name"]]]
+    analysis = run_analysis(ARCHS[GLM_ARCH], dev, card)
+    for entry in record["kernels"]:
+        if entry["name"] in analysis:
+            entry["census_launches"] = analysis[entry["name"]]
     print(f"every phase passed in {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps(record))

@@ -17,6 +17,9 @@ def resolve_device(device="cuda") -> torch.device:
     """Return ``device`` as a :class:`torch.device`, refusing CUDA when
     no card is visible instead of falling back to the CPU."""
     dev = torch.device(device)
+    if dev.type == "cuda" and _fake_mode_active():
+        # Fake CUDA tensors (a dry run) need no card.
+        return torch.device("cuda", dev.index or 0)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -26,6 +29,12 @@ def resolve_device(device="cuda") -> torch.device:
         if dev.index is None:       # compare equal to tensor.device
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _fake_mode_active() -> bool:
+    from torch._guards import detect_fake_mode
+
+    return detect_fake_mode() is not None
 
 
 def as_f32(x, device: torch.device) -> torch.Tensor:

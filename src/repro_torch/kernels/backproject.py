@@ -23,6 +23,12 @@ K5 a tile's boxes packed in one slot sized by the launch's largest
 per-tile total (:func:`repro_torch.core.clipping.shared_box_slots`); a
 box its slot had to cut is counted on the card (:func:`strip_clamped`).
 The libraries are built at first use (:mod:`._build`).
+
+Each launch goes through a custom op, ``torch.ops.repro_torch.backproject``
+and ``torch.ops.repro_torch.backproject_strip`` (each updates the volume
+in place), so that a dispatch mode
+(:class:`repro_torch.analysis.trace.OpTrace`, the flop counter) sees it
+and a fake tensor reaches the op's fake implementation, not the kernel.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _ops
 
 __all__ = ["LAUNCHES", "MAX_PBATCH", "SMEM_LIMIT", "STRIP_KINDS",
            "WIRE_ITEMSIZE", "WIRE_LAUNCH_KEYS", "launch_backproject",
@@ -144,18 +150,34 @@ def launch_backproject(volume: torch.Tensor, padded: torch.Tensor,
                          f"and floors tap coordinates below 2^22")
     if nz == 0:
         return volume
+    torch.ops.repro_torch.backproject(volume, padded, mats, scales, int(z0),
+                                      float(O), float(MM))
+    return volume
+
+
+def _backproject_op(volume: torch.Tensor, padded: torch.Tensor,
+                    mats: torch.Tensor, scales: torch.Tensor | None, z0: int,
+                    O: float, MM: float) -> None:
+    """Row 1's launch (operands checked by :func:`launch_backproject`)."""
+    wire = padded.dtype
+    P, rows, cols = (int(n) for n in padded.shape)
+    nz, L = int(volume.shape[0]), int(volume.shape[1])
     head = [volume.data_ptr(), padded.data_ptr()]
     if scales is not None:
         head.append(scales.data_ptr())
     stream = torch.cuda.current_stream(volume.device).cuda_stream
     with torch.cuda.device(volume.device):
-        rc = _lib(wire)(*head, mats.data_ptr(), P, L, nz, int(z0), rows,
-                        cols, float(O), float(MM), stream)
+        rc = _lib(wire)(*head, mats.data_ptr(), P, L, nz, z0, rows, cols, O,
+                        MM, stream)
     if rc != 0:
         raise RuntimeError(f"backproject kernel launch failed: CUDA error "
                            f"{rc}")
     LAUNCHES[WIRE_LAUNCH_KEYS[wire]] += 1
-    return volume
+
+
+_ops.define("backproject(Tensor(a!) volume, Tensor padded, Tensor mats, "
+            "Tensor? scales, int z0, float O, float MM) -> ()",
+            _backproject_op, lambda *args: None)
 
 
 def strip_launch_key(kind: str, wire: torch.dtype, P: int) -> str:
@@ -261,8 +283,11 @@ _STRIP_ARGTYPES = ([_I, _I, _P, _P, _P, _P] + [_I] * 9 + [_F, _F]
                    + [_I] * 12 + [_P, _P])
 
 
+_STRIP_ENTRY = "backproject_strip_launch"
+
+
 def _strip_lib():
-    fn = _build.load("backproject_strip").backproject_strip_launch
+    fn = getattr(_build.load("backproject_strip"), _STRIP_ENTRY)
     if fn.argtypes is None:
         fn.argtypes = _STRIP_ARGTYPES
         fn.restype = ctypes.c_int
@@ -333,7 +358,7 @@ def launch_strip(volume: torch.Tensor, stack: torch.Tensor,
     rows, cols = n_v + 2, n_u + 2
     isz = stack.element_size()
     if (stack.ndim != 3 or stack.shape[1] != rows or stack.shape[2] < cols
-            or (stack.shape[2] * isz) % 16 or stack.data_ptr() % 16):
+            or (stack.shape[2] * isz) % 16):
         raise ValueError(
             f"stack must be (P, {rows}, pitch) with pitch >= {cols}, "
             f"16-byte aligned with whole 16-byte rows (pitch_stack); got "
@@ -382,17 +407,45 @@ def launch_strip(volume: torch.Tensor, stack: torch.Tensor,
             f"offers {SMEM_LIMIT} B")
     if nz == 0:
         return volume
+    torch.ops.repro_torch.backproject_strip(
+        volume, stack, mats, scales, STRIP_KINDS[kind], int(z0), float(O),
+        float(MM), n_u, n_v, ty, chunk, band, width, pad_rows, pad_cols,
+        depth, group, gband, gwidth, *slot_dims)
+    return volume
+
+
+def _strip_op(volume: torch.Tensor, stack: torch.Tensor, mats: torch.Tensor,
+              scales: torch.Tensor | None, kind: int, z0: int, O: float,
+              MM: float, n_u: int, n_v: int, ty: int, chunk: int, band: int,
+              width: int, pad_rows: int, pad_cols: int, depth: int,
+              group: int, gband: int, gwidth: int, slot_rows: int,
+              slot_units: int) -> None:
+    """A strip kernel's launch (operands checked by :func:`launch_strip`);
+    a box its slot cuts is counted in the device's clamp counter."""
+    if stack.data_ptr() % 16:
+        raise ValueError("stack must be 16-byte aligned (pitch_stack)")
+    isz = stack.element_size()
+    nz, L = int(volume.shape[0]), int(volume.shape[1])
     stream = torch.cuda.current_stream(volume.device).cuda_stream
     with torch.cuda.device(volume.device):
         rc = _strip_lib()(
-            STRIP_KINDS[kind], isz, volume.data_ptr(), stack.data_ptr(),
+            kind, isz, volume.data_ptr(), stack.data_ptr(),
             None if scales is None else scales.data_ptr(), mats.data_ptr(),
-            P, L, nz, int(z0), rows, cols, (int(stack.shape[2]) * isz) // 4,
-            n_u, n_v, float(O), float(MM), ty, chunk, band, width, pad_rows,
-            pad_cols, depth, group, gband, gwidth, *slot_dims,
-            _clamp_counter(volume.device).data_ptr(), stream)
+            int(stack.shape[0]), L, nz, z0, n_v + 2, n_u + 2,
+            (int(stack.shape[2]) * isz) // 4, n_u, n_v, O, MM, ty, chunk,
+            band, width, pad_rows, pad_cols, depth, group, gband, gwidth,
+            slot_rows, slot_units, _clamp_counter(volume.device).data_ptr(),
+            stream)
+    name = next(k for k, v in STRIP_KINDS.items() if v == kind)
     if rc != 0:
-        raise RuntimeError(f"strip_{kind} kernel launch failed: CUDA error "
+        raise RuntimeError(f"strip_{name} kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES[strip_launch_key(kind, wire, P)] += 1
-    return volume
+    LAUNCHES[strip_launch_key(name, stack.dtype, int(stack.shape[0]))] += 1
+
+
+_ops.define("backproject_strip(Tensor(a!) volume, Tensor stack, Tensor mats, "
+            "Tensor? scales, int kind, int z0, float O, float MM, int n_u, "
+            "int n_v, int ty, int chunk, int band, int width, int pad_rows, "
+            "int pad_cols, int depth, int group, int gband, int gwidth, "
+            "int slot_rows, int slot_units) -> ()", _strip_op,
+            lambda *args: None)

@@ -17,6 +17,11 @@ plain version is :func:`repro_torch.kernels.gather_ref.gather_grad_ref`.
 :func:`grad_path` is the launcher's choice between the one-block sort
 and ``torch.sort`` followed by the row search and walk; each
 launch counts the path it took in :data:`GRAD_PATHS`.
+
+Each launch goes through a custom op, ``torch.ops.repro_torch.onehot_gather``
+and ``torch.ops.repro_torch.onehot_gather_grad``, so that a dispatch mode
+(:class:`repro_torch.analysis.trace.OpTrace`, the flop counter) sees it
+and a fake tensor reaches the op's fake implementation, not the kernel.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _ops
 from .backproject import LAUNCHES
 
 __all__ = ["BLOCK_MAX_N", "BLOCK_MAX_V", "GRAD_PATHS", "KEY_POS_BITS",
@@ -104,23 +109,37 @@ def launch_onehot_gather(table: torch.Tensor, ids: torch.Tensor,
     if table.ndim != 2 or ids.ndim != 1:
         raise ValueError(f"table must be (V, D) and ids (N,); got "
                          f"{tuple(table.shape)} and {tuple(ids.shape)}")
+    if ids.shape[0] == 0 or table.shape[1] == 0:
+        return table.new_empty((ids.shape[0], table.shape[1]))
+    return torch.ops.repro_torch.onehot_gather(table, ids, int(offset))
+
+
+def _gather_op(table: torch.Tensor, ids: torch.Tensor,
+               offset: int) -> torch.Tensor:
+    """Row 9's launch (operands checked by :func:`launch_onehot_gather`)."""
     V, D = (int(n) for n in table.shape)
     N = int(ids.shape[0])
     out = torch.empty((N, D), dtype=table.dtype, device=table.device)
-    if N == 0 or D == 0:
-        return out
     vec16 = (D * table.element_size() % 16 == 0
              and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     with torch.cuda.device(table.device):
         rc = _lib(table.dtype)(table.data_ptr(), ids.data_ptr(),
-                               out.data_ptr(), N, V, int(offset), D,
+                               out.data_ptr(), N, V, offset, D,
                                int(vec16), stream)
     if rc != 0:
         raise RuntimeError(f"onehot_gather kernel launch failed: CUDA "
                            f"error {rc}")
     LAUNCHES["onehot_gather"] += 1
     return out
+
+
+def _gather_fake(table, ids, offset):
+    return table.new_empty((ids.shape[0], table.shape[1]))
+
+
+_ops.define("onehot_gather(Tensor table, Tensor ids, int offset) -> Tensor",
+            _gather_op, _gather_fake)
 
 
 def launch_onehot_gather_grad(ids: torch.Tensor, dout: torch.Tensor,
@@ -148,11 +167,19 @@ def launch_onehot_gather_grad(ids: torch.Tensor, dout: torch.Tensor,
     if dout.ndim != 2 or ids.ndim != 1 or ids.shape[0] != dout.shape[0]:
         raise ValueError(f"ids must be (N,) and dout (N, D); got "
                          f"{tuple(ids.shape)} and {tuple(dout.shape)}")
+    if V == 0 or dout.shape[1] == 0:
+        return dout.new_empty((int(V), dout.shape[1]))
+    return torch.ops.repro_torch.onehot_gather_grad(ids, dout, int(V),
+                                                    int(offset))
+
+
+def _gather_grad_op(ids: torch.Tensor, dout: torch.Tensor, V: int,
+                    offset: int) -> torch.Tensor:
+    """Row 9b's launch (operands checked by
+    :func:`launch_onehot_gather_grad`), through the path
+    :func:`grad_path` names."""
     N, D = (int(n) for n in dout.shape)
-    V = int(V)
     dtable = torch.empty((V, D), dtype=dout.dtype, device=dout.device)
-    if V == 0 or D == 0:
-        return dtable
     vec16 = (D * dout.element_size() % 16 == 0
              and dout.data_ptr() % 16 == 0 and dtable.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(dout.device).cuda_stream
@@ -163,15 +190,14 @@ def launch_onehot_gather_grad(ids: torch.Tensor, dout: torch.Tensor,
                                   dtype=torch.int32, device=dout.device)
             rc = _lib(dout.dtype, "block")(
                 ids.data_ptr(), dout.data_ptr(), scratch.data_ptr(),
-                dtable.data_ptr(), N, V, int(offset), D, int(vec16),
-                stream)
+                dtable.data_ptr(), N, V, offset, D, int(vec16), stream)
         else:
             sorted_ids, perm = torch.sort(ids, stable=True)
             starts = torch.empty((V + 1,), dtype=torch.int64,
                                  device=dout.device)
             rc = _lib(dout.dtype, "sort")(
                 sorted_ids.data_ptr(), perm.data_ptr(), dout.data_ptr(),
-                starts.data_ptr(), dtable.data_ptr(), N, V, int(offset), D,
+                starts.data_ptr(), dtable.data_ptr(), N, V, offset, D,
                 int(vec16), stream)
     if rc != 0:
         raise RuntimeError(f"onehot_gather backward kernel launch failed: "
@@ -179,3 +205,11 @@ def launch_onehot_gather_grad(ids: torch.Tensor, dout: torch.Tensor,
     GRAD_PATHS[path] += 1
     LAUNCHES["onehot_gather_backward"] += 1
     return dtable
+
+
+def _gather_grad_fake(ids, dout, V, offset):
+    return dout.new_empty((V, dout.shape[1]))
+
+
+_ops.define("onehot_gather_grad(Tensor ids, Tensor dout, int V, int offset)"
+            " -> Tensor", _gather_grad_op, _gather_grad_fake)

@@ -17,6 +17,11 @@ is a block-local chunked scan (``csrc/slstm.cu``): a block of
 :data:`BWD_WARPS` warps owns 32 chains, each warp a chunk of
 :data:`BWD_CHUNK` tokens of each piece; :func:`backward_config` reads
 its layout from the built library.
+
+Each launch goes through a custom op (``torch.ops.repro_torch.slstm``,
+``slstm_train`` and ``slstm_backward``), so that a dispatch mode
+(:class:`repro_torch.analysis.trace.OpTrace`, the flop counter) sees it
+and a fake tensor reaches the op's fake implementation, not the kernel.
 """
 
 from __future__ import annotations
@@ -25,15 +30,19 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _ops
 from .backproject import LAUNCHES
 
 __all__ = ["BWD_CHUNK", "BWD_WARPS", "backward_config", "launch_slstm",
            "launch_slstm_backward", "launch_slstm_train"]
 
-# The C entry points and their pointer counts before (B, S, di, stream).
-_ENTRIES = {"slstm_launch": 5, "slstm_train_launch": 6,
-            "slstm_backward_launch": 9}
+# The C entry points and their ctypes argument types: the launches take
+# their pointers, then (B, S, di, stream); the config its out pointer.
+_ARGTYPES = {e: [ctypes.c_void_p] * n + [ctypes.c_int] * 3
+             + [ctypes.c_void_p]
+             for e, n in (("slstm_launch", 5), ("slstm_train_launch", 6),
+                          ("slstm_backward_launch", 9))}
+_ARGTYPES["slstm_backward_config"] = [ctypes.c_void_p]
 
 
 # The backward's chunked scan, as csrc/slstm.cu builds it (SLSTM_BWD_W
@@ -46,12 +55,8 @@ def backward_config() -> dict:
     """The backward kernel's layout on the current CUDA device, from the
     built library: warps a block, tokens a chunk, shared bytes a block
     and the blocks an SM holds."""
-    fn = _build.load("slstm").slstm_backward_config
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
-    rc = fn(ctypes.addressof(out))
+    rc = _lib("slstm_backward_config")(ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"slstm backward config failed: CUDA error {rc}")
     return {"warps": out[0], "chunk": out[1], "smem_bytes": out[2],
@@ -61,8 +66,7 @@ def backward_config() -> dict:
 def _lib(entry: str = "slstm_launch"):
     fn = getattr(_build.load("slstm"), entry)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * _ENTRIES[entry]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.argtypes = _ARGTYPES[entry]
         fn.restype = ctypes.c_int
     return fn
 
@@ -110,18 +114,9 @@ def launch_slstm(zifo: torch.Tensor, r: torch.Tensor,
     di)``, both float32.
     """
     B, S, di = _check(zifo, r, state)
-    hs = torch.empty((B, S, di), dtype=torch.float32, device=zifo.device)
-    out = torch.empty((4, B, di), dtype=torch.float32, device=zifo.device)
     if B * di == 0:
-        return hs, out
-    stream = torch.cuda.current_stream(zifo.device).cuda_stream
-    with torch.cuda.device(zifo.device):
-        rc = _lib()(zifo.data_ptr(), r.data_ptr(), state.data_ptr(),
-                    hs.data_ptr(), out.data_ptr(), B, S, di, stream)
-    if rc != 0:
-        raise RuntimeError(f"slstm kernel launch failed: CUDA error {rc}")
-    LAUNCHES["slstm"] += 1
-    return hs, out
+        return _outputs(zifo, states=False)
+    return tuple(torch.ops.repro_torch.slstm(zifo, r, state))
 
 
 def launch_slstm_train(zifo: torch.Tensor, r: torch.Tensor,
@@ -130,21 +125,9 @@ def launch_slstm_train(zifo: torch.Tensor, r: torch.Tensor,
     3, di)`` float32, ``(c, n, m)`` after the step, for
     :func:`launch_slstm_backward`."""
     B, S, di = _check(zifo, r, state)
-    hs = torch.empty((B, S, di), dtype=torch.float32, device=zifo.device)
-    out = torch.empty((4, B, di), dtype=torch.float32, device=zifo.device)
-    states = torch.empty((B, S, 3, di), dtype=torch.float32,
-                         device=zifo.device)
     if B * di == 0:
-        return hs, out, states
-    stream = torch.cuda.current_stream(zifo.device).cuda_stream
-    with torch.cuda.device(zifo.device):
-        rc = _lib("slstm_train_launch")(
-            zifo.data_ptr(), r.data_ptr(), state.data_ptr(), hs.data_ptr(),
-            out.data_ptr(), states.data_ptr(), B, S, di, stream)
-    if rc != 0:
-        raise RuntimeError(f"slstm kernel launch failed: CUDA error {rc}")
-    LAUNCHES["slstm"] += 1
-    return hs, out, states
+        return _outputs(zifo)
+    return tuple(torch.ops.repro_torch.slstm_train(zifo, r, state))
 
 
 def launch_slstm_backward(zifo: torch.Tensor, r: torch.Tensor,
@@ -158,19 +141,82 @@ def launch_slstm_backward(zifo: torch.Tensor, r: torch.Tensor,
     on one CUDA device.  Returns ``d zifo`` (B, S, 4, di) and ``d r``
     (4, di)."""
     B, S, di = _check(zifo, r, state, hs=hs, states=states, dhs=dhs)
-    dzifo = torch.empty_like(zifo)
-    dr = torch.zeros((4, di), dtype=torch.float32, device=zifo.device)
     if B * di == 0:
-        return dzifo, dr
-    part = torch.empty((B, 4, di), dtype=torch.float32, device=zifo.device)
+        return (torch.empty_like(zifo),
+                torch.zeros((4, di), dtype=torch.float32, device=zifo.device))
+    return tuple(torch.ops.repro_torch.slstm_backward(zifo, r, state, hs,
+                                                      states, dhs))
+
+
+def _outputs(zifo: torch.Tensor,
+             states: bool = True) -> tuple[torch.Tensor, ...]:
+    """Empty hidden states ``(B, S, di)``, final state ``(4, B, di)`` and,
+    with ``states``, per-step states ``(B, S, 3, di)`` for gates
+    ``zifo``."""
+    B, S, _, di = zifo.shape
+    out = (zifo.new_empty((B, S, di)), zifo.new_empty((4, B, di)))
+    return out + (zifo.new_empty((B, S, 3, di)),) if states else out
+
+
+def _launch(entry: str, what: str, zifo: torch.Tensor, *ptrs: int) -> None:
+    """Launch ``entry`` on the pointers ``ptrs`` and ``zifo``'s (B, S,
+    di); raises when the launch is refused."""
+    B, S, _, di = (int(n) for n in zifo.shape)
     stream = torch.cuda.current_stream(zifo.device).cuda_stream
     with torch.cuda.device(zifo.device):
-        rc = _lib("slstm_backward_launch")(
-            zifo.data_ptr(), r.data_ptr(), state.data_ptr(), hs.data_ptr(),
-            states.data_ptr(), dhs.data_ptr(), dzifo.data_ptr(),
-            part.data_ptr(), dr.data_ptr(), B, S, di, stream)
+        rc = _lib(entry)(*ptrs, B, S, di, stream)
     if rc != 0:
-        raise RuntimeError(f"slstm backward kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _slstm_op(zifo: torch.Tensor, r: torch.Tensor,
+              state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row 10's launch (operands checked by :func:`launch_slstm`)."""
+    hs, out = _outputs(zifo, states=False)
+    _launch("slstm_launch", "slstm", zifo, zifo.data_ptr(), r.data_ptr(),
+            state.data_ptr(), hs.data_ptr(), out.data_ptr())
+    LAUNCHES["slstm"] += 1
+    return hs, out
+
+
+def _slstm_train_op(zifo: torch.Tensor, r: torch.Tensor, state: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Row 10's training launch (operands checked by
+    :func:`launch_slstm_train`)."""
+    hs, out, states = _outputs(zifo)
+    _launch("slstm_train_launch", "slstm", zifo, zifo.data_ptr(), r.data_ptr(),
+            state.data_ptr(), hs.data_ptr(), out.data_ptr(),
+            states.data_ptr())
+    LAUNCHES["slstm"] += 1
+    return hs, out, states
+
+
+def _slstm_backward_op(zifo: torch.Tensor, r: torch.Tensor,
+                       state: torch.Tensor, hs: torch.Tensor,
+                       states: torch.Tensor, dhs: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row 10b's launch (operands checked by
+    :func:`launch_slstm_backward`)."""
+    B, _, _, di = zifo.shape
+    dzifo = torch.empty_like(zifo)
+    dr = torch.zeros((4, di), dtype=torch.float32, device=zifo.device)
+    part = torch.empty((B, 4, di), dtype=torch.float32, device=zifo.device)
+    _launch("slstm_backward_launch", "slstm backward", zifo, zifo.data_ptr(), r.data_ptr(),
+            state.data_ptr(), hs.data_ptr(), states.data_ptr(),
+            dhs.data_ptr(), dzifo.data_ptr(), part.data_ptr(), dr.data_ptr())
     LAUNCHES["slstm_backward"] += 1
     return dzifo, dr
+
+
+def _slstm_backward_fake(zifo, r, state, hs, states, dhs):
+    return torch.empty_like(zifo), zifo.new_empty((4, zifo.shape[3]))
+
+
+_ops.define("slstm(Tensor zifo, Tensor r, Tensor state) -> (Tensor, Tensor)",
+            _slstm_op, lambda zifo, r, state: _outputs(zifo, states=False))
+_ops.define("slstm_train(Tensor zifo, Tensor r, Tensor state) -> "
+            "(Tensor, Tensor, Tensor)", _slstm_train_op,
+            lambda zifo, r, state: _outputs(zifo))
+_ops.define("slstm_backward(Tensor zifo, Tensor r, Tensor state, Tensor hs, "
+            "Tensor states, Tensor dhs) -> (Tensor, Tensor)",
+            _slstm_backward_op, _slstm_backward_fake)

@@ -71,8 +71,10 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
     if not dist.is_initialized():
         raise RuntimeError("create the process group of the world before "
                            "make_production_mesh (see init_world)")
-    dev = resolve_device(device)
-    return init_device_mesh(dev.type, shape, mesh_dim_names=names)
+    # A fake world (the dry run's) holds no devices to resolve.
+    kind = (torch.device(device).type if dist.get_backend() == "fake"
+            else resolve_device(device).type)
+    return init_device_mesh(kind, shape, mesh_dim_names=names)
 
 
 def make_local_mesh(data: int | None = None, model: int = 1, *,

@@ -48,9 +48,11 @@ the layer and keeps its own block after it
 
 The reference's ``scatter-add`` into ``E * C + 1`` rows sends every
 dropped assignment, multiplied by 0, to the extra row and cuts it away;
-the port writes the kept rows only (each kept slot is unique, so the
-values are the same) and needs no extra row.  Plain PyTorch: the
-reference has no Pallas kernel for it.
+the port writes every assignment's token into ``E * C + 1`` rows (each
+kept slot is unique, so the kept rows hold the same values; the dropped
+ones land in the extra row, which is cut), with no boolean mask, so no
+shape depends on the data (fake tensors, the dry run) and no host
+sync.  Plain PyTorch: the reference has no Pallas kernel for it.
 """
 
 from __future__ import annotations
@@ -94,10 +96,18 @@ def _route(params, cfg, xf: torch.Tensor):
     return probs, gates, idx
 
 
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` for ids in ``[0, n)``, as a
+    tensor of ``n`` int64 counts whatever the values (no host sync, and
+    a shape fake tensors know)."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def _aux_loss(cfg, probs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Switch load-balance loss: ``E * sum_e f_e * P_e``."""
     E = cfg.n_experts
-    counts = torch.bincount(idx.reshape(-1), minlength=E).float()
+    counts = _counts(idx.reshape(-1), E).float()
     f = counts / max(idx.numel(), 1)
     return E * torch.sum(f * probs.mean(dim=0))
 
@@ -115,7 +125,7 @@ def _positions_in_expert(e_flat: torch.Tensor, E: int) -> torch.Tensor:
     sort, each expert's start subtracted (O(N * k) memory)."""
     nk = e_flat.shape[0]
     order = torch.argsort(e_flat, stable=True)
-    counts = torch.bincount(e_flat, minlength=E)
+    counts = _counts(e_flat, E)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.empty((nk,), dtype=torch.int64, device=e_flat.device)
     pos[order] = torch.arange(nk, device=e_flat.device) \
@@ -125,15 +135,17 @@ def _positions_in_expert(e_flat: torch.Tensor, E: int) -> torch.Tensor:
 
 def _dispatch(params, cfg, xt, gates, slot, keep, n_rows: int, dtype):
     """The kept assignments' tokens into ``n_rows`` buffer rows, the
-    expert FFNs (of ``params``'s experts), and the gated outputs summed over each token's ``k``
-    assignments in float32: (N, d)."""
+    expert FFNs (of ``params``'s experts), and the gated outputs summed
+    over each token's ``k`` assignments in float32: (N, d).  A dropped
+    assignment's ``slot`` is ``n_rows``: its token goes to one more row,
+    which is cut (no boolean mask, so no host sync)."""
     E, k = params["w_gate"].shape[0], cfg.top_k
     N, d = xt.shape
     tok = torch.arange(N, device=xt.device).repeat_interleave(k)
-    buf = xt.new_zeros((n_rows, d), dtype=dtype)
-    buf[slot[keep]] = xt[tok[keep]].to(dtype)
-    out_buf = _expert_ffn(params, cfg, buf.reshape(E, n_rows // E, d),
-                          dtype)
+    buf = xt.new_zeros((n_rows + 1, d), dtype=dtype)
+    buf[slot] = xt[tok].to(dtype)
+    out_buf = _expert_ffn(params, cfg,
+                          buf[:n_rows].reshape(E, n_rows // E, d), dtype)
     gk = (gates.reshape(-1) * keep).to(dtype)
     got = out_buf.reshape(n_rows, d)[torch.clamp(slot, 0, n_rows - 1)]
     return (got * gk[:, None]).reshape(N, k, d).float().sum(1)
@@ -226,7 +238,7 @@ def _global_aux(cfg, probs, idx, split) -> torch.Tensor:
     and probability sums all-reduced; the gradient is this rank's part."""
     mesh, dims, n = split
     E = cfg.n_experts
-    counts = torch.bincount(idx.reshape(-1), minlength=E).float()
+    counts = _counts(idx.reshape(-1), E).float()
     counts = fsdp.reduced(counts, mesh, dims)
     f = counts / (idx.numel() * n)
     P = fsdp.reduced(probs.sum(dim=0), mesh, dims) / (probs.shape[0] * n)
@@ -295,8 +307,7 @@ def moe_forward(params, cfg, x: torch.Tensor, *, impl: str = "scatter",
     else:
         mesh, dims, n = split
         C = moe_capacity(cfg, N * n)
-        before, _ = fsdp.rank_prefix(torch.bincount(e_flat, minlength=E),
-                                     mesh, dims)
+        before, _ = fsdp.rank_prefix(_counts(e_flat, E), mesh, dims)
         keep = pos + before[e_flat] < C
     slot = torch.where(keep, e_flat * C + pos, E * C)
     y = _dispatch(params, cfg, xt, gates, slot, keep, E * C, dtype)
