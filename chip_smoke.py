@@ -75,14 +75,20 @@ xlstm-125m trained on a (2, 2) mesh (``tp`` on ``model``) against 16b's
 one-rank runs, rows 9, 9b, 10 and 10b launched on every rank at the
 split shapes and held there to their plain versions; jamba-v0.1-52b one
 period deep in float32 under ``tp=ep``; chatglm3-6b at 4 layers under
-``sp_act``, its logits, loss and gradient norm against one rank; then
-the four kernels timed at a rank's shapes.  Last, the analysis tools
+``sp_act``, its logits, loss and gradient norm against one rank;
+whisper-small (float32, its vocabulary whole on each rank, its heads
+split) on (1, 2) and xlstm-125m (bfloat16, its mLSTM whole, its sLSTM
+at 192 units) on (1, 8), where ``tp`` does not divide some widths, each
+against one rank (17e, 17f); then the four kernels timed at a rank's
+shapes.  Last, the analysis tools
 (phase 18): ``python -m repro_torch.analysis.lint`` on this checkout
 (four passes, exit 0) and on a planted fixture (exit 1), one served
 chatglm3-6b decode call traced op by op (each kernel op counted as its
 launches, the roofline's memory term beside the weight-bytes floor and
 the call's profiled device time), a row-1 fold whose traced byte term
-is its bound, and one dry-run cell on fake tensors.  Any failed check
+is its bound, one dry-run cell on fake tensors, and every cell of
+xlstm-125m, qwen2-vl-2b and whisper-small on both production meshes
+(none an error).  Any failed check
 exits non-zero.  The
 last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the JSON record of
@@ -3666,7 +3672,8 @@ def mesh_rank(phase: str, rank: int, tmp: str) -> int:
         timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
     try:
         run = {"16b": rank_train, "16c": rank_decode, "16d": rank_ep,
-               "17acd": rank_tp, "17b": rank_train}[phase]
+               "17acd": rank_tp, "17b": rank_train, "17e": rank_tp_whole,
+               "17f": rank_tp_whole}[phase]
         rec = run(rank, d, dev, meta)
     finally:
         dist.destroy_process_group()
@@ -4379,9 +4386,10 @@ def run_tp(xcfg, glm_cfg, jamba_cfg, dev, card: str,
     ``tp`` mesh (17a), ``xcfg`` (xlstm-125m) trained on a TP_TRAIN_MESH
     mesh against 16b's one-rank runs ``b16`` (run here when ``None``;
     17b), ``jamba_cfg`` at one period under ``tp=ep`` (17c), chatglm3-6b
-    cut to TP_SP[0] layers under ``sp_act`` (17d), then rows 9, 9b, 10
-    and 10b timed at the split shapes.  Returns the ranks' launches and
-    the timings."""
+    cut to TP_SP[0] layers under ``sp_act`` (17d), whisper-small and
+    xlstm-125m where ``tp`` does not divide some of their widths (17e,
+    17f: :data:`TP_WHOLE`), then rows 9, 9b, 10 and 10b timed at the
+    split shapes.  Returns the ranks' launches and the timings."""
     t0 = time.perf_counter()
     print(card)
     torch.cuda.empty_cache()
@@ -4405,6 +4413,7 @@ def run_tp(xcfg, glm_cfg, jamba_cfg, dev, card: str,
         print(f"phase 17a/c/d: {TP_RANKS} gloo ranks, (1, {TP_RANKS}) mesh")
         recs = mesh_ranks("17acd", d1, TP_RANKS)
         train = check_tp_train(onehot, dev, d2, base, b16)
+    whole = check_tp_whole(dev, base)
     one32 = ref["17a_float32"]
     layers = glm.n_layers
     for i, r in enumerate(recs):
@@ -4449,10 +4458,14 @@ def run_tp(xcfg, glm_cfg, jamba_cfg, dev, card: str,
                 for k in TP_KERNELS}
     launches["onehot_gather"]["17a"] = [
         r["17a_float32"]["launches"]["onehot_gather"] for r in recs]
+    for case, w in whole.items():
+        for k in ("onehot_gather", "slstm"):
+            if w["want"][k]:
+                launches[k][case] = [r["launches"][k] for r in w["ranks"]]
     print(json.dumps({"tp_detail": {
         "card": card, "phase_s": phase_s, "one_rank": ref,
         "ranks_17acd": recs, "train_17b": train,
-        "split_kernels": timings}}))
+        "split_kernels": timings, "whole_17ef": whole}}))
     return launches, timings
 
 
@@ -4598,6 +4611,229 @@ def check_tp_train(cfg, dev, tmp: pathlib.Path, base: dict,
 
 
 # ----------------------------------------------------------------------
+# The divisibility guard under tp (phase 17e, 17f)
+# ----------------------------------------------------------------------
+
+# case: (arch, ranks on the (1, n) mesh, dtype).  17e: whisper-small's
+# 51865 vocabulary rows replicated, its 12 heads split; 17f: xlstm-125m's
+# 4 mLSTM heads whole at tp = 8, the sLSTM's 1536 units split to 192.
+TP_WHOLE = {"17e": ("whisper-small", 2, "float32"),
+            "17f": ("xlstm-125m", 8, "bfloat16")}
+TP_WHOLE_SHAPE = (2, 64, 4)         # B, prompt tokens, decode steps
+TP_WHOLE_FRAMES = 256               # 17e's audio frames
+# 17f, bfloat16: x max(1, max|ref|), tests/test_torch_lm_archs.py's bf16
+# bound, beside the greedy tokens.
+TP_WHOLE_BF16_TOL = 5e-2
+
+
+def whole_cfg(case: str, base: dict):
+    """17e/17f's config (``onehot``, its dtype), cut in CPU rehearsals."""
+    from repro_torch.configs import ARCHS
+
+    arch, _, dtype = TP_WHOLE[case]
+    cfg = ARCHS[arch]
+    if base.get("reduced"):
+        cfg = dataclasses.replace(cfg.reduced(), name=arch,
+                                  vocab=base["whole_vocab"][case])
+    return dataclasses.replace(cfg, gather_impl="onehot", param_dtype=dtype)
+
+
+def whole_batch(cfg, dev, seed: int) -> dict:
+    """TP_WHOLE_SHAPE's prompts and teacher-forced tokens (and whisper's
+    frames), drawn from ``seed``."""
+    from repro_torch.models.model import FRONTEND_DIM
+
+    B, P, n = TP_WHOLE_SHAPE
+    batch = {"tokens": seeded_ints(cfg.vocab, (B, P + n), dev, seed)}
+    if cfg.frontend == "audio":
+        batch["frames"] = seeded_normal(
+            (B, TP_WHOLE_FRAMES, FRONTEND_DIM["audio"]), dev, seed + 1)
+    return batch
+
+
+def whole_decode(model, cfg, batch: dict, dev) -> tuple:
+    """A prefill of the prompts and TP_WHOLE_SHAPE's teacher-forced
+    decode steps: (logits (B, steps + 1, V) float32 on the host, the
+    prefill's ms, ms and collectives per decode step, the cache)."""
+    from repro_torch.dist import fsdp
+    from repro_torch.models.model import decode_step, prefill
+
+    _, P, n = TP_WHOLE_SHAPE
+    toks = batch["tokens"]
+    first = dict(batch, tokens=toks[:, :P])
+    sync(dev)
+    t0 = time.perf_counter()
+    lg, cache = prefill(model, cfg, first, P + n)
+    sync(dev)
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    out, ms, coll = [lg[:, -1].float().cpu()], [], []
+    for i in range(n):
+        before = sum(fsdp.COUNTS.values())
+        t0 = time.perf_counter()
+        lg, cache = decode_step(model, cfg, cache, toks[:, P + i:P + i + 1],
+                                P + i)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        coll.append(sum(fsdp.COUNTS.values()) - before)
+        out.append(lg[:, -1].float().cpu())
+    return torch.stack(out, 1), pre_ms, ms, coll, cache
+
+
+def rank_tp_whole(rank: int, d: pathlib.Path, dev, meta: dict) -> dict:
+    """17e or 17f on one rank of the (1, n) ``tp`` mesh: the model placed
+    as drawn, a prefill and decode steps held to the one rank's logits;
+    the launches of rows 9 and 10; what runs whole and what splits."""
+    from repro_torch.dist import fsdp, tp
+    from repro_torch.dist.sharding import sharding_context
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import init_model
+
+    case = meta["case"]
+    cfg = whole_cfg(case, meta)
+    n = TP_WHOLE[case][1]
+    mesh = make_local_mesh(1, n, device=dev)
+    rules = tp_rules()
+    model = init_model(cfg, seed=SEED, device=dev, mesh=mesh, rules=rules)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in np.load(d / "batch.npz").items()}
+    ref = torch.from_numpy(np.load(d / "logits.npy"))
+    zero_launches(dev)
+    fsdp.COUNTS.update({k: 0 for k in fsdp.COUNTS})
+    with torch.no_grad(), sharding_context(mesh, rules):
+        lg, pre_ms, ms, coll, cache = whole_decode(model, cfg, batch, dev)
+        s = tp.split()
+        kinds = ["vocab"] + [k for k in ("attn", "mlstm", "slstm")
+                             if k in cfg.block_pattern] \
+            + ["mlp"] * bool(cfg.d_ff)
+        whole = {k: tp.sub_split(cfg, k, s) is None for k in kinds}
+    launches = {k: LAUNCHES[k] for k in ("onehot_gather", "slstm")}
+    held, full = held_bytes(model)
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((lg - ref).abs().max())
+    rec = {"max_abs_err": err, "scale": scale, "prefill_ms": pre_ms,
+           "ms": ms, "collectives": coll, "launches": launches,
+           "whole": whole, "held_bytes": held, "full_bytes": full,
+           "embed_rows": int(fsdp.local(model.embed).shape[0]),
+           "cache_bytes": cache_bytes(cache),
+           "cache_shapes": {f"{b}/{k}": list(v.shape)
+                            for b, leaves in cache["blocks"].items()
+                            for k, v in leaves.items()}}
+    if cfg.param_dtype == "float32":
+        rec["bound"] = TP_TOL * scale
+        rec["ok"] = err <= rec["bound"]
+    else:
+        # Greedy tokens equal wherever the one rank's top two logits lie
+        # further apart than the two runs' logits do.
+        top2 = ref.topk(2, -1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * err
+        same = lg.argmax(-1) == ref.argmax(-1)
+        rec["bound"] = TP_WHOLE_BF16_TOL * scale
+        rec["greedy_equal"] = float(same.float().mean())
+        rec["greedy_ties"] = int((~clear).sum())
+        rec["ok"] = err <= rec["bound"] and bool(same[clear].all())
+    if rank == 0:
+        rec["kernel_checks"] = whole_kernel_checks(cfg, s, dev)
+        rec["ok"] &= all(c["ok"] for c in rec["kernel_checks"].values())
+    return rec
+
+
+def whole_kernel_checks(cfg, s, dev) -> dict:
+    """Rows 9 and 10 at the shapes 17e/17f give them, each held to its
+    plain version: row 9 bitwise on the rank's block of the vocabulary
+    (all of it, offset 0, where ``tp`` does not divide it), row 10 at
+    the rank's sLSTM units within SLSTM_TOL, prefill and one step."""
+    from repro_torch.dist import tp
+    from repro_torch.kernels.gather_kernel_ops import cuda_onehot_gather
+    from repro_torch.kernels.gather_ref import gather_ref
+    from repro_torch.kernels.slstm import launch_slstm
+    from repro_torch.kernels.slstm_ref import (init_slstm_state,
+                                               slstm_recurrence_ref)
+
+    B, P, _ = TP_WHOLE_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED + 177)
+    sv = tp.sub_split(cfg, "vocab", s)
+    V = cfg.vocab if sv is None else cfg.vocab // sv.n
+    off = 0 if sv is None else sv.r * V
+    dtype = getattr(torch, cfg.param_dtype)
+    table = torch.randn((V, cfg.d_model), generator=g, device=dev).to(dtype)
+    ids = torch.randint(0, cfg.vocab, (B * P,), generator=g, device=dev)
+    got = cuda_onehot_gather(table, ids, offset=off)
+    out = {"row9": {"V": V, "offset": off,
+                    "ok": torch.equal(got, gather_ref(table, ids - off))}}
+    if "slstm" in cfg.block_pattern:
+        ss = tp.sub_split(cfg, "slstm", s)
+        di = cfg.d_inner if ss is None else cfg.d_inner // ss.n
+        worst = 0.0
+        for S in (P, 1):
+            zifo = torch.randn((B, S, 4, di), generator=g, device=dev)
+            r = torch.randn((4, di), generator=g, device=dev) / di ** 0.5
+            state = init_slstm_state(B, di, device=dev)
+            hs, _ = launch_slstm(zifo, r, state)
+            want, _ = slstm_recurrence_ref(zifo, r, state)
+            worst = max(worst, excess(hs, want, SLSTM_TOL))
+        out["row10"] = {"di": di, "excess": worst, "ok": worst <= 0}
+    sync(dev)
+    return out
+
+
+def check_tp_whole(dev, base: dict) -> dict:
+    """17e and 17f: each case's one-rank run in this process, then its
+    ranks; prints the errors, ms and collectives a decode step, what
+    ran whole, and the launches."""
+    from repro_torch.models.model import init_model
+
+    out = {}
+    for case, (arch, n, dtype) in TP_WHOLE.items():
+        cfg = whole_cfg(case, base)
+        with tempfile.TemporaryDirectory() as t:
+            d = pathlib.Path(t)
+            batch = whole_batch(cfg, dev, SEED + 175)
+            np.savez(d / "batch.npz", **{k: v.cpu().numpy()
+                                         for k, v in batch.items()})
+            model = init_model(cfg, seed=SEED, device=dev)
+            with torch.no_grad():
+                lg, pre_ms, ms, _, cache = whole_decode(model, cfg, batch,
+                                                        dev)
+            one = {"prefill_ms": pre_ms, "ms": ms,
+                   "cache_bytes": cache_bytes(cache)}
+            np.save(d / "logits.npy", lg.numpy())
+            del model, cache
+            free(dev)
+            (d / "meta.json").write_text(json.dumps(dict(
+                base, world=n, case=case)))
+            print(f"phase {case}: {arch} {dtype}, {n} gloo ranks on a "
+                  f"(1, {n}) tp mesh")
+            recs = mesh_ranks(case, d, n)
+        B, P, steps = TP_WHOLE_SHAPE
+        want = {"onehot_gather": 1 + steps,
+                "slstm": (cfg.block_pattern.count("slstm") * cfg.n_periods
+                          * (1 + steps))}
+        for i, r in enumerate(recs):
+            if r["launches"] != want:
+                fail(f"{case}: rank {i} launched {r['launches']}, not "
+                     f"{want}")
+        r = recs[0]
+        extra = ("" if "greedy_equal" not in r else
+                 f"; greedy tokens equal {r['greedy_equal']:.3f} "
+                 f"({r['greedy_ties']} positions within the logits' gap)")
+        print(f"  {case}: max|d| {max(x['max_abs_err'] for x in recs):.3e} "
+              f"(bound {r['bound']:.3e}){extra}; whole on each rank: "
+              f"{sorted(k for k, v in r['whole'].items() if v)}; embed "
+              f"rows a rank {r['embed_rows']} of {cfg.vocab}; holds "
+              f"{r['held_bytes'] / 1e9:.3f} of {r['full_bytes'] / 1e9:.3f} "
+              f"GB; cache {r['cache_bytes'] / 2**20:.2f} MiB (one rank "
+              f"{one['cache_bytes'] / 2**20:.2f}); prefill "
+              f"{r['prefill_ms']:.1f} ms (one rank {one['prefill_ms']:.1f});"
+              f" {statistics.median(r['collectives']):g} collectives and "
+              f"{statistics.median(r['ms']):.2f} ms a decode step a rank "
+              f"(one rank {statistics.median(one['ms']):.2f}); launches a "
+              f"rank {r['launches']}; kernels {r['kernel_checks']}")
+        out[case] = {"one_rank": one, "ranks": recs, "want": want}
+    return out
+
+
+# ----------------------------------------------------------------------
 # The analysis tools (phase 18)
 # ----------------------------------------------------------------------
 
@@ -4608,16 +4844,25 @@ ROW1_TABLE_BOUND_MS = "0.3263"
 # 18c: the dry-run cell.  A tool that outlasts TOOL_TIMEOUT_S fails.
 DRYRUN_CELL = ("chatglm3-6b", "decode_32k", "pod")
 TOOL_TIMEOUT_S = 240
+# 18c: the architectures whose cells were errors before the divisibility
+# guard (tp = 16 divides neither their heads nor, for whisper-small, its
+# vocabulary): every supported cell of theirs on both meshes, one
+# process a cell and mesh, DRYRUN_WORKERS at a time.
+DRYRUN_GUARDED = ("xlstm-125m", "qwen2-vl-2b", "whisper-small")
+DRYRUN_WORKERS = 8
+
+
+def tool_env() -> dict:
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(_SRC)] + ([os.environ["PYTHONPATH"]]
+                       if os.environ.get("PYTHONPATH") else [])))
 
 
 def run_tool(module: str, args: list) -> tuple[int, str]:
     """``python -m <module> <args>`` from the checkout, on the host;
     (exit code, standard output).  Any exit but 0 and 1 fails."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(_SRC)] + ([os.environ["PYTHONPATH"]]
-                       if os.environ.get("PYTHONPATH") else [])))
     proc = subprocess.run([sys.executable, "-m", module, *args],
-                          capture_output=True, text=True, env=env,
+                          capture_output=True, text=True, env=tool_env(),
                           cwd=_SRC.parent, timeout=TOOL_TIMEOUT_S)
     if proc.returncode not in (0, 1):
         fail(f"{module} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
@@ -4766,7 +5011,7 @@ def check_census(cfg, dev) -> dict:
 def check_dryrun() -> dict:
     """18c: one dry-run cell through ``python -m repro_torch.launch.dryrun``
     on the host (fake tensors, a fake world of 256 ranks); it must
-    record ``"status": "ok"``."""
+    record ``"status": "ok"``.  Then :func:`check_guarded_cells`."""
     arch, shape, mesh = DRYRUN_CELL
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
@@ -4789,12 +5034,64 @@ def check_dryrun() -> dict:
           f"compute {ro['compute_s']:.3e} s, memory {ro['memory_s']:.3e} s, "
           f"collective {ro['collective_s']:.3e} s ({ro['dominant']}); live "
           f"{mem['live_bytes'] / 1e9:.2f} GB; {rec['kv_layout']}")
-    return {"record": rec, "wall_s": wall}
+    return {"record": rec, "wall_s": wall, "guarded": check_guarded_cells()}
+
+
+def check_guarded_cells() -> dict:
+    """18c: every supported cell of DRYRUN_GUARDED's architectures on
+    both production meshes through ``python -m repro_torch.launch.dryrun``
+    (one process a cell and mesh); each must record ``"status": "ok"``.
+    Prints each cell's live GB a rank and whether it fits 80 GB, and the
+    error cells on each mesh (0)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.registry import ARCHS, cell_supported
+
+    todo = [(a, sh, m) for a in DRYRUN_GUARDED for sh in sorted(SHAPES)
+            for m in ("pod", "multipod")
+            if cell_supported(ARCHS[a], SHAPES[sh])[0]]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        def one(cell):
+            a, sh, m = cell
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", a, "--shape", sh, "--mesh", m, "--out", d],
+                capture_output=True, text=True, env=tool_env(),
+                cwd=_SRC.parent, timeout=TOOL_TIMEOUT_S)
+            path = pathlib.Path(d) / f"{a}__{sh}__{m}.json"
+            return (json.loads(path.read_text()) if path.is_file() else
+                    {"status": "missing", "error": proc.stderr[-2000:]})
+
+        with concurrent.futures.ThreadPoolExecutor(DRYRUN_WORKERS) as pool:
+            recs = dict(zip(todo, pool.map(one, todo)))
+    wall = time.perf_counter() - t0
+    errors = {m: [k for k, r in recs.items() if k[2] == m
+                  and r["status"] != "ok"] for m in ("pod", "multipod")}
+    for (a, sh, mesh), r in sorted(recs.items()):
+        if r["status"] == "ok":
+            print(f"  18c {a} {sh} {mesh}: ok, live "
+                  f"{r['memory']['live_bytes'] / 1e9:.2f} GB a rank, fits "
+                  f"80 GB: {r['fits_80gb_hbm']}; {r['roofline']['dominant']}"
+                  f"-bound, traced in {r['trace_s']} s")
+    print(f"  18c: {len(todo) // 2} cells of {', '.join(DRYRUN_GUARDED)} on "
+          f"each mesh in {wall:.1f} s; error cells: pod "
+          f"{len(errors['pod'])}, multipod {len(errors['multipod'])}")
+    if any(errors.values()):
+        bad = [(k, recs[k].get("error")) for m in errors.values()
+               for k in m]
+        fail(f"18c: the dry run's error cells {bad}")
+    return {"wall_s": wall, "cells": {
+        "/".join(k): {"live_bytes": r["memory"]["live_bytes"],
+                      "fits_80gb_hbm": r["fits_80gb_hbm"],
+                      "trace_s": r["trace_s"],
+                      "dominant": r["roofline"]["dominant"]}
+        for k, r in recs.items()}}
 
 
 def run_analysis(glm_cfg, dev, card: str) -> dict:
-    """Phase 18: the lint, the census and one dry-run cell; returns the
-    phase's launches by kernel record name."""
+    """Phase 18: the lint, the census, one dry-run cell and the cells of
+    DRYRUN_GUARDED on both meshes; returns the phase's launches by kernel
+    record name."""
     t0 = time.perf_counter()
     print("phase 18a: python -m repro_torch.analysis.lint on this checkout")
     lint = check_lint()

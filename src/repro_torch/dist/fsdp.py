@@ -24,8 +24,9 @@ axes and ZeRO-3 (FSDP) over the ``fsdp`` axes.
   ``sp_act`` sums a norm's gradient over the sequence split
   (``sum_axes=rules.sp_act``; :func:`grad_placements`).
 * :func:`batch_block` / :func:`gather_rows` split the batch over the
-  batch axes and put rows back together; :func:`reduced` is an
-  all-reduce whose gradient is the local one, for a global loss.
+  batch axes (a batch the shards do not divide is replicated) and put
+  rows back together; :func:`reduced` is an all-reduce whose gradient
+  is the local one, for a global loss.
 
 Every collective goes through ``torch.distributed`` directly (one
 process group per mesh dimension), never through DTensor's
@@ -271,12 +272,15 @@ def _batch_placements(mesh, rules, d: int = 0):
 
 def batch_block(x: torch.Tensor, mesh, rules, d: int = 0) -> torch.Tensor:
     """This rank's rows of ``x`` (every rank's identical copy) along
-    dimension ``d``, split over the batch axes major to minor.  The rows
-    must divide the batch shards (the reference would replicate them)."""
+    dimension ``d``, split over the batch axes major to minor; all of
+    them where the batch shards do not divide them (the reference's
+    divisibility guard replicates such a batch).  The model's entry
+    points then run without batch axes, so that no gradient is summed
+    over ranks that hold the same rows
+    (:func:`repro_torch.models.model._guard`)."""
     n = math.prod(mesh.size(i) for i in batch_dims(mesh, rules))
     if x.shape[d] % n:
-        raise ValueError(f"a batch of {x.shape[d]} rows does not divide "
-                         f"the {n} batch shards of the mesh")
+        return x
     return local_block(x, mesh, _batch_placements(mesh, rules, d))
 
 

@@ -35,14 +35,15 @@ Design rules:
   Where ``n_kv_heads % tp == 0`` it takes its own block of KV heads;
   where not, ``wk``/``wv`` are gathered over ``tp`` (gradient summed)
   and the rank computes only the KV heads its query heads read
-  (:func:`kv_heads`; GQA groups stay contiguous).  A rank whose query
-  heads straddle two groups is refused.
+  (:func:`kv_heads`).  Where its query heads straddle GQA groups
+  unevenly, each local query head reads its own group's KV head
+  (:func:`head_map`).
 * **Mamba.**  ``in_proj`` is cut as two parts; ``conv_*``, ``dt_bias``,
   ``A_log``, ``D`` are per-channel blocks; ``x_proj`` is row-parallel
   into the shared ``2 ds + 1`` outputs, which :func:`shared` all-reduces
   forward and backward (each rank's channels read all of them).
 * **mLSTM / sLSTM.**  ``qkv`` is cut as three parts, ``gates`` as two
-  (the heads must divide ``tp``), ``zifo`` as four and ``r_zifo`` by
+  (by heads), ``zifo`` as four and ``r_zifo`` by
   its block: every normaliser is per head and the sLSTM recurrence is
   diagonal, so kernel rows 10 and 10b run unchanged on ``di / tp``.
 * **Vocabulary-parallel embedding and loss.**  A rank holds rows
@@ -60,13 +61,27 @@ Design rules:
   sequence: all-gathered before each sub-layer (:func:`enter`),
   reduce-scattered after a split one (:func:`leave`).  Norms then read a
   block of the sequence, so their gradients are summed over ``sp_act``
-  (:func:`read`).  A decode step computes its one token whole.  Any
-  other ``sp_act`` layout computes the stream whole.
+  (:func:`read`).  A decode step computes its one token whole, and so
+  does a call whose sequence (or, for an encoder-decoder, the encoder's)
+  the ranks do not divide.  Any other ``sp_act`` layout computes the
+  stream whole.
 * **Flash-decoding beside tp.**  Under ``rules.flash_decode`` with ``sp``
   axes the attention keeps its heads whole and splits the cache's
   positions (PR 24's path); ``tp`` splits the MLP and the mixers.
-* **No silent fallback.**  A split that a shape does not divide raises
-  ``ValueError`` naming the leaf; KV heads follow the rule above.
+* **The divisibility guard** (the reference's ``valid_spec``,
+  ``repro/dist/sharding.py``): any dimension that does not divide by the
+  total size of its mesh axes falls back to replication.  Here the unit
+  is the sub-layer: attention (its query heads), the mLSTM (its heads
+  and ``d_inner``), the sLSTM and Mamba (``d_inner``), the MLP
+  (``d_ff``), and the vocabulary embedding with the logits and the loss
+  (the vocabulary).  Where ``tp`` does not divide one of those widths
+  the sub-layer runs whole on every rank (:func:`sub_split` is
+  ``None``): its ``tp`` leaves are gathered whole (each rank computes
+  the same values, so their gradients are not summed over ``tp``), its
+  input skips :func:`copy_to_tp`, its output :func:`reduce_from_tp`,
+  and its cache leaves keep their full width.  The placement keeps
+  ``valid_spec``'s per-leaf rule: a leaf whose own dimension divides
+  stays placed on ``tp`` and is gathered.
 """
 
 from __future__ import annotations
@@ -78,15 +93,18 @@ import torch.distributed as dist
 
 from . import fsdp
 
-__all__ = ["Split", "split", "attention_split", "block_of", "kv_heads",
-           "read", "cut_parts", "FUSED", "copy_to_tp", "reduce_from_tp",
-           "shared", "enter", "leave", "seq_full", "full_vocab",
-           "vocab_nll", "local_inner", "local_kv"]
+__all__ = ["Split", "split", "attention_split", "divides", "sub_split",
+           "vocab_split", "block_of", "kv_heads", "head_map", "read",
+           "cut_parts", "FUSED", "copy_to_tp", "reduce_from_tp", "shared",
+           "enter", "leave", "seq_full", "full_vocab", "vocab_nll",
+           "local_inner", "local_kv"]
 
 # Fused projections: the number of parts their split dimension holds.
 FUSED = {"in_proj": 2, "qkv": 3, "gates": 2, "zifo": 4}
 # Attention leaves whose split follows the KV heads.
 _KV_LEAVES = ("wk", "wv", "wk_b", "wv_b")
+# Top-level leaves split over the vocabulary.
+_VOCAB_LEAVES = ("embed", "unembed")
 _NORM_SUFFIXES = ("_scale", "_bias")
 
 
@@ -135,10 +153,46 @@ def attention_split(s: Split | None = None) -> Split | None:
     return s
 
 
+def divides(total: int, s: Split) -> bool:
+    """Whether the ``s.n`` tensor-parallel shards divide ``total``."""
+    return total % s.n == 0
+
+
+def _widths(cfg, kind: str) -> tuple:
+    """The widths a sub-layer of ``kind`` splits over ``tp`` (module
+    docstring); ``()`` for one that is never split."""
+    return {"attn": (cfg.n_heads,), "cross": (cfg.n_heads,),
+            "mlstm": (cfg.n_heads, cfg.d_inner), "mamba": (cfg.d_inner,),
+            "slstm": (cfg.d_inner,), "mlp": (cfg.d_ff,),
+            "vocab": (cfg.vocab,)}.get(kind, ())
+
+
+def sub_split(cfg, kind: str, s: Split | None) -> Split | None:
+    """The split a sub-layer of ``kind`` (``attn``, ``cross``, ``mlstm``,
+    ``slstm``, ``mamba``, ``mlp``, ``vocab``) takes under ``s``: ``s``
+    itself, or ``None`` where it runs whole (the divisibility guard, or
+    the attention under flash-decoding).  The MoE layer, the norms and
+    the frontends are whole under every split."""
+    if s is None or kind in ("attn", "cross") and attention_split(s) is None:
+        return None
+    widths = _widths(cfg, kind)
+    return s if widths and all(divides(w, s) for w in widths) else None
+
+
+def vocab_split(vocab: int | None = None) -> Split | None:
+    """The active split where it divides ``vocab`` (``None``: the
+    caller's table is already this rank's block), else ``None``."""
+    s = split()
+    if s is None or vocab is not None and not divides(vocab, s):
+        return None
+    return s
+
+
 def block_of(total: int, s: Split, what: str) -> tuple[int, int]:
-    """``(start, size)`` of this rank's block of ``total``; a ``total``
-    that ``s.n`` does not divide raises, naming ``what``."""
-    if total % s.n:
+    """``(start, size)`` of this rank's block of ``total``.  The callers
+    check :func:`divides` first (:func:`sub_split`); a ``total`` that
+    ``s.n`` does not divide here is a fault, named by ``what``."""
+    if not divides(total, s):
         raise ValueError(f"{what}: {total} does not divide the {s.n} "
                          f"tensor-parallel shards")
     size = total // s.n
@@ -148,31 +202,42 @@ def block_of(total: int, s: Split, what: str) -> tuple[int, int]:
 def kv_heads(cfg, s: Split) -> tuple[int, int]:
     """``(k0, k1)``: the KV heads this rank's query heads read."""
     h0, hn = block_of(cfg.n_heads, s, "n_heads (wq, wo)")
-    if cfg.n_kv_heads % s.n == 0:
+    if divides(cfg.n_kv_heads, s):
         k0, kn = block_of(cfg.n_kv_heads, s, "n_kv_heads")
         return k0, k0 + kn
     g = cfg.n_heads // cfg.n_kv_heads
-    k0, k1 = h0 // g, (h0 + hn - 1) // g + 1
-    if k1 - k0 > 1:
-        raise ValueError(f"query heads [{h0}, {h0 + hn}) straddle GQA "
-                         f"groups of {g}: tp={s.n} does not fit "
-                         f"n_kv_heads={cfg.n_kv_heads}")
-    return k0, k1
+    return h0 // g, (h0 + hn - 1) // g + 1
+
+
+def head_map(cfg, s: Split) -> list | None:
+    """Each of this rank's query heads' KV head, counted from
+    :func:`kv_heads`'s first, where the rank's query heads straddle GQA
+    groups unevenly (6 heads over 3 KV heads at tp = 2: rank 0 holds
+    heads 0-2, which read KV heads 0, 0, 1); ``None`` where they are
+    whole groups or lie in one, and grouping them in order is right."""
+    h0, hn = block_of(cfg.n_heads, s, "n_heads (wq, wo)")
+    k0, k1 = kv_heads(cfg, s)
+    g = cfg.n_heads // cfg.n_kv_heads
+    if k1 - k0 == 1 or (h0 % g == 0 and hn % g == 0):
+        return None
+    return [(h0 + i) // g - k0 for i in range(hn)]
 
 
 def local_kv(cfg) -> int:
-    """This rank's KV heads (all of them off a split)."""
-    s = attention_split()
+    """This rank's KV heads (all of them off a split, or where the
+    attention runs whole)."""
+    s = sub_split(cfg, "attn", split())
     if s is None:
         return cfg.n_kv_heads
     k0, k1 = kv_heads(cfg, s)
     return k1 - k0
 
 
-def local_inner(cfg, what: str = "d_inner") -> int:
-    """This rank's channels of ``cfg.d_inner`` (Mamba, sLSTM)."""
-    s = split()
-    return cfg.d_inner if s is None else block_of(cfg.d_inner, s, what)[1]
+def local_inner(cfg, kind: str) -> int:
+    """This rank's channels of ``cfg.d_inner`` in a ``kind`` mixer
+    (``mamba``, ``slstm``): all of them where it runs whole."""
+    s = sub_split(cfg, kind, split())
+    return cfg.d_inner if s is None else cfg.d_inner // s.n
 
 
 # ----------------------------------------------------------------------
@@ -194,10 +259,12 @@ def read(p: torch.Tensor, name: str, spec, kind: str, cfg, mesh, rules,
     (``attn``, ``cross``, ``mamba``, ``mlstm``, ``slstm``, ``mlp``,
     ``block`` for a block's norms, ``top``) as this rank computes with
     it under the split ``s``; ``seq`` when the stream is split along the
-    sequence (its norms then read a block of it)."""
+    sequence (its norms then read a block of it).  A leaf of a sub-layer
+    that runs whole (:func:`sub_split`) is gathered whole."""
     d = spec.index("tp") if "tp" in spec else None
-    whole_attn = kind in ("attn", "cross") and attention_split(s) is None
-    if d is None or whole_attn:
+    sub = kind if kind != "top" else "vocab" if name in _VOCAB_LEAVES \
+        else None
+    if d is None or sub_split(cfg, sub, s) is None:
         norm = seq and kind in ("block", "top") \
             and name.endswith(_NORM_SUFFIXES)
         return fsdp.gather(p, mesh, rules,
@@ -211,7 +278,7 @@ def read(p: torch.Tensor, name: str, spec, kind: str, cfg, mesh, rules,
         full = fsdp.gather(p, mesh, rules, sum_axes=rules.tp)
         return cut_parts(full, d, FUSED[name], s, what)
     if kind in ("attn", "cross") and name in _KV_LEAVES \
-            and cfg.n_kv_heads % s.n:
+            and not divides(cfg.n_kv_heads, s):
         full = fsdp.gather(p, mesh, rules, sum_axes=rules.tp)
         k0, k1 = kv_heads(cfg, s)
         return full.narrow(d, k0 * cfg.hd, (k1 - k0) * cfg.hd)

@@ -37,10 +37,11 @@ reference's keys:
 layout priced: the reference shards its KV positions over ``sp``
 (:func:`_cache_logical_specs`); the port splits them only under
 flash-decoding (``--sp`` on a decode cell), else each rank holds every
-position of its rows and KV heads.  A leaf that ``tp`` (16 ranks) does
-not divide makes :mod:`repro_torch.dist.tp` raise ``ValueError``; the
-cell is then recorded as ``"status": "error"`` with that message, where
-GSPMD would replicate the leaf.
+position of its rows and KV heads.  Where ``tp`` (16 ranks) does not
+divide a sub-layer's widths (xlstm-125m's 4 mLSTM heads, qwen2-vl-2b's
+and whisper-small's 12 heads, whisper-small's 51865 vocabulary rows)
+the sub-layer runs whole on the rank, as GSPMD replicates such a leaf
+(:func:`repro_torch.dist.tp.sub_split`), and the cell is priced so.
 
 On a PyTorch built without CUDA the fake CUDA tensors need a CUDA device
 guard that does nothing (PyTorch's CUDA builds bring their own):
@@ -49,9 +50,9 @@ host's C++ compiler into ``build/repro_torch/`` at first use.  Such a
 build's autograd engine refuses a CUDA tensor's gradient (it asks the
 CUDA accelerator for its streams), so there a train cell runs on fake
 CPU tensors (record key ``fake_device``); the ops are the same, and the
-kernel wrappers would take the plain versions, which no arch's train
-step reaches there (the one arch with the sLSTM kernel, xlstm-125m,
-stops at ``tp``'s ``ValueError``, and every arch gathers with ``take``).
+kernel wrappers take the plain versions there (xlstm-125m's sLSTM
+recurrence, token by token on fake tensors; every arch gathers with
+``take``).
 
 Usage::
 

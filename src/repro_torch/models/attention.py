@@ -25,8 +25,11 @@ Pallas kernel.
 Under a tensor-parallel split (:mod:`repro_torch.dist.tp`) the
 functions take a rank's blocks of ``wq``/``wk``/``wv`` and ``wo`` and
 compute its query heads and the KV heads those read (the head counts
-come from the weights' widths, the cache's from :func:`tp.local_kv`);
-``wo``'s output is the rank's partial sum, which the block reduces.
+come from the weights' widths, the cache's from :func:`tp.local_kv`;
+query heads that straddle GQA groups unevenly read theirs through
+:func:`tp.head_map`); ``wo``'s output is the rank's partial sum, which
+the block reduces.  Where the split does not divide the heads the
+attention runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -85,6 +88,20 @@ def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     reads KV head h // G."""
     B, S, H, hd = q.shape
     return q.reshape(B, S, n_kv, H // n_kv, hd)
+
+
+def _heads(cfg, q, k, v):
+    """``(q grouped over the KV heads it reads, k, v)``.  Where this
+    rank's query heads straddle GQA groups unevenly
+    (:func:`repro_torch.dist.tp.head_map`) each query head gets its own
+    copy of its KV head's keys and values, one group a head."""
+    s = tp.sub_split(cfg, "attn", tp.split())
+    heads = None if s is None else tp.head_map(cfg, s)
+    if heads is None:
+        return _group(q, k.shape[2]), k, v
+    idx = torch.tensor(heads, device=k.device)
+    return (_group(q, q.shape[2]), k.index_select(2, idx),
+            v.index_select(2, idx))
 
 
 def _scale(hd: int) -> float:
@@ -164,7 +181,8 @@ def attention_train(params, cfg, x, positions, *, causal: bool = True,
     if xkv is None:
         xkv, kv_positions = x, positions
     q, k, v = _qkv(params, cfg, x, xkv, positions, kv_positions, dtype)
-    out = _attend(cfg, _group(q, k.shape[2]), k, v, causal)
+    qg, kh, vh = _heads(cfg, q, k, v)
+    out = _attend(cfg, qg, kh, vh, causal)
     B, S = x.shape[:2]
     y = dense(params, "wo", out.reshape(B, S, -1), dtype)
     if return_kv:
@@ -299,10 +317,9 @@ def attention_decode(params, cfg, x, cache: dict, index, *,
     if cfg.rope == "mrope":
         positions = positions.expand(3, B, 1)
     q, k_new, v_new = _qkv(params, cfg, x, x, positions, positions, dtype)
-    sp = _decode_attend_sp(cfg, _group(q, k_new.shape[2]), k_new, v_new,
-                           cache, index, dtype)
-    if sp is not None:
-        out, new_cache = sp
+    if sp_shards() is not None:
+        out, new_cache = _decode_attend_sp(cfg, _group(q, k_new.shape[2]),
+                                           k_new, v_new, cache, index, dtype)
         return dense(params, "wo", out.reshape(B, 1, -1), dtype), new_cache
     if cfg.kv_cache_dtype == "int8":
         kq, ks = _kv_quant(k_new)
@@ -317,8 +334,8 @@ def attention_decode(params, cfg, x, cache: dict, index, *,
         k = _update(cache["k"], k_new, index)
         v = _update(cache["v"], v_new, index)
         new_cache = {"k": k, "v": v}
-    out = _attend(cfg, _group(q, k.shape[2]), k, v, True,
-                  q_offset=int(index))
+    qg, k, v = _heads(cfg, q, k, v)
+    out = _attend(cfg, qg, k, v, True, q_offset=int(index))
     y = dense(params, "wo", out.reshape(B, 1, -1), dtype)
     return y, new_cache
 
@@ -328,5 +345,5 @@ def attention_cross_step(params, cfg, x, k, v, *, dtype=torch.bfloat16):
     values (dense, not causal)."""
     B = x.shape[0]
     q = dense(params, "wq", x, dtype).reshape(B, 1, -1, cfg.hd)
-    out = _dense_attention(_group(q, k.shape[2]), k, v, causal=False)
+    out = _dense_attention(*_heads(cfg, q, k, v), causal=False)
     return dense(params, "wo", out.reshape(B, 1, -1), dtype)

@@ -17,9 +17,11 @@ Under a tensor-parallel split (:mod:`repro_torch.dist.tp`) each
 sub-layer's input enters through :func:`tp.enter` and its output
 leaves through :func:`tp.leave`: the mixers, the cross-attention and
 the MLP are split (their outputs are partial sums), the MoE layer and,
-under flash-decoding, the attention are whole.  Under ``sp_act`` the
-full-sequence paths take and return the stream as this rank's block of
-the sequence; a decode step's stream is whole.
+under flash-decoding, the attention are whole, and so is a sub-layer
+whose widths the split does not divide (:func:`tp.sub_split`).  Under
+``sp_act`` the full-sequence paths take and return the stream as this
+rank's block of the sequence (``seq``, which the model decides for the
+call); a decode step's stream is whole.
 """
 
 from __future__ import annotations
@@ -77,14 +79,10 @@ def mlp_forward(params, cfg, x, dtype) -> torch.Tensor:
     return dense(params, "w_down", h, dtype)
 
 
-def _split_sub(s, kind: str) -> bool:
-    """Whether a sub-layer of ``kind`` is split under ``s`` (module
-    docstring)."""
-    if s is None or kind == "moe":
-        return False
-    if kind in ("attn", "cross"):
-        return tp.attention_split(s) is not None
-    return True
+def _split_sub(cfg, s, kind: str) -> bool:
+    """Whether a sub-layer of ``kind`` is split under ``s``
+    (:func:`repro_torch.dist.tp.sub_split`; the MoE layer never is)."""
+    return tp.sub_split(cfg, kind, s) is not None
 
 
 def _ffn_part(params, cfg, x, use_moe: bool, moe_impl: str, dtype,
@@ -97,9 +95,10 @@ def _ffn_part(params, cfg, x, use_moe: bool, moe_impl: str, dtype,
                              dtype=dtype)
         x = x + tp.leave(y, s, False, seq)
     elif cfg.d_ff:
-        h = tp.enter(apply_norm(params, "ln2", x, cfg.norm), s, True, seq)
+        sub = _split_sub(cfg, s, "mlp")
+        h = tp.enter(apply_norm(params, "ln2", x, cfg.norm), s, sub, seq)
         x = x + tp.leave(mlp_forward(params["mlp"], cfg, h, dtype), s,
-                         True, seq)
+                         sub, seq)
     return x, aux
 
 
@@ -154,7 +153,7 @@ def _cross(params, cfg, x, positions, enc_out, enc_positions, dtype,
            s=None, seq: bool = False):
     """The cross-attention sub-block's output into the stream, and the
     (rank's) encoder keys and values."""
-    sub = _split_sub(s, "cross")
+    sub = _split_sub(cfg, s, "cross")
     h = tp.enter(apply_norm(params, "lnx", x, cfg.norm), s, sub, seq)
     y, kv = attention_train(params["cross"], cfg, h, positions,
                             causal=False,
@@ -166,7 +165,7 @@ def _cross(params, cfg, x, positions, enc_out, enc_positions, dtype,
 
 def _mixer_in(params, cfg, kind: str, x, s, seq: bool):
     """The mixer's input, and whether it is split."""
-    sub = _split_sub(s, kind)
+    sub = _split_sub(cfg, s, kind)
     return tp.enter(apply_norm(params, "ln1", x, cfg.norm), s, sub,
                     seq), sub
 
@@ -174,11 +173,12 @@ def _mixer_in(params, cfg, kind: str, x, s, seq: bool):
 def block_forward(params, cfg, kind: str, use_moe: bool, x, positions=None,
                   *, causal: bool = True, cross: bool = False, enc_out=None,
                   enc_positions=None, moe_impl: str = "scatter",
-                  dtype=torch.bfloat16):
-    """Full sequence: (x, aux loss)."""
+                  dtype=torch.bfloat16, seq: bool = False):
+    """Full sequence: (x, aux loss); ``seq``: the stream is this rank's
+    block of the sequence (the model decides it for the call)."""
     _check(kind)
     s = tp.split()
-    seq = s is not None and s.sp
+    seq = seq and s is not None
     h, sub = _mixer_in(params, cfg, kind, x, s, seq)
     m = params["mixer"]
     if kind == "attn":
@@ -196,13 +196,13 @@ def block_forward(params, cfg, kind: str, use_moe: bool, x, positions=None,
 def block_prefill(params, cfg, kind: str, use_moe: bool, x, positions=None,
                   max_len: int = 0, *, cross: bool = False, enc_out=None,
                   enc_positions=None, moe_impl: str = "scatter",
-                  dtype=torch.bfloat16):
+                  dtype=torch.bfloat16, seq: bool = False):
     """Forward and the decode cache (the sequence fills ``[0, S)`` of an
     attention block's ``max_len`` positions; the rest are zeros): (x,
-    cache, aux loss)."""
+    cache, aux loss); ``seq`` as in :func:`block_forward`."""
     _check(kind)
     s = tp.split()
-    seq = s is not None and s.sp
+    seq = seq and s is not None
     h, sub = _mixer_in(params, cfg, kind, x, s, seq)
     S = h.shape[1]
     if kind == "attn" and max_len < S:
@@ -253,7 +253,7 @@ def block_step(params, cfg, kind: str, use_moe: bool, x, cache: dict,
         mix, new_cache = _MIXERS[kind][3](m, cfg, h, mix_cache, dtype=dtype)
     x = x + tp.leave(mix, s, sub, False)
     if cross:
-        sub = _split_sub(s, "cross")
+        sub = _split_sub(cfg, s, "cross")
         h = tp.enter(apply_norm(params, "lnx", x, cfg.norm), s, sub, False)
         x = x + tp.leave(attention_cross_step(
             params["cross"], cfg, h, cache["cross_k"], cache["cross_v"],

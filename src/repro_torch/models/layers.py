@@ -13,7 +13,8 @@ parameter records the reference's logical sharding axes
 Under a tensor-parallel split (:mod:`repro_torch.dist.tp`) the model
 hands these functions each rank's blocks: :func:`embed_lookup` gathers
 from its block of the vocabulary and reduces the rows over ``tp``,
-:func:`unembed` returns its block of the logits.
+:func:`unembed` returns its block of the logits; a vocabulary the split
+does not divide is whole on every rank.
 """
 
 from __future__ import annotations
@@ -160,8 +161,8 @@ def init_embed(p: Params, vocab: int, d: int, tie: bool):
 
 
 def embed_lookup(params, tokens: torch.Tensor, impl: str = "take",
-                 compute_dtype=torch.bfloat16, *,
-                 seq: bool = False) -> torch.Tensor:
+                 compute_dtype=torch.bfloat16, *, seq: bool = False,
+                 vocab: int | None = None) -> torch.Tensor:
     """Token -> vector via the configured gather strategy
     (:mod:`repro_torch.core.gather_ops`), scaled by ``sqrt(d)``.
 
@@ -174,12 +175,15 @@ def embed_lookup(params, tokens: torch.Tensor, impl: str = "take",
     block of the vocabulary; the rows (each token's from one rank, zeros
     from the others, so the sum is exact) are all-reduced over ``tp``,
     or with ``seq`` reduce-scattered to this rank's block of the
-    sequence."""
+    sequence.  A ``vocab`` that the split does not divide is whole on
+    every rank (the divisibility guard): the one-device gather, and with
+    ``seq`` this rank's block of the sequence cut from it."""
     table = params["embed"]
     d = table.shape[1]
-    s = tp.split()
+    s = tp.vocab_split(vocab)
     if s is None:
-        out = gather_rows(table, tokens, impl=impl)
+        out = tp.leave(gather_rows(table, tokens, impl=impl), tp.split(),
+                       False, seq)
     else:
         out = tp.leave(gather_rows(table, tokens, impl=impl,
                                    offset=s.r * table.shape[0],
@@ -190,12 +194,13 @@ def embed_lookup(params, tokens: torch.Tensor, impl: str = "take",
 
 
 def unembed(params, x: torch.Tensor, tie: bool,
-            compute_dtype=torch.bfloat16, *, seq: bool = False
-            ) -> torch.Tensor:
+            compute_dtype=torch.bfloat16, *, seq: bool = False,
+            vocab: int | None = None) -> torch.Tensor:
     """Float32 logits; under a tensor-parallel split this rank's block of
     the vocabulary (column-parallel; with ``seq`` the stream ``x`` is
-    this rank's block of the sequence, gathered first)."""
-    x = tp.enter(x, tp.split(), True, seq)
+    this rank's block of the sequence, gathered first), or all of a
+    ``vocab`` that the split does not divide."""
+    x = tp.enter(x, tp.split(), tp.vocab_split(vocab) is not None, seq)
     if tie:
         w = params["embed"].to(compute_dtype).T
     else:

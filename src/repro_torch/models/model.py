@@ -45,8 +45,11 @@ over ``fsdp``) as they are drawn, by :func:`init_model` with ``mesh=``,
 or, for parameters converted from the reference, afterwards by
 :func:`repro_torch.dist.place_params`:
 
-* each rank takes its block of the batch's rows (they must divide the
-  batch shards; the reference would replicate a batch that does not);
+* each rank takes its block of the batch's rows; a batch that the batch
+  shards do not divide is replicated over them, the call running with
+  no batch axes (:func:`_guard`; the reference's ``pick_rules`` drops
+  ``batch`` for such a cell), so no gradient is summed over ranks that
+  hold equal rows;
 * the top-level parameters are gathered once a call, each layer's
   inside its period, so under remat the gathered copies are freed after
   the period and gathered again in the backward; the model's code, and
@@ -58,7 +61,11 @@ or, for parameters converted from the reference, afterwards by
   :func:`decode_step` return the full logits (every rank's rows);
 * the cache is this rank's: its batch rows and, under flash-decoding
   (``rules.flash_decode`` with ``sp`` axes), its slice of the positions
-  (:func:`init_cache`, :func:`prefill`, :func:`shard_cache`);
+  (:func:`init_cache`, :func:`prefill`, :func:`shard_cache`).  A
+  ``max_len`` that the sequence shards do not divide falls back to the
+  plain decode, as the reference's (``repro/models/attention.py``): the
+  positions stay whole on every rank, and the cache says so
+  (:data:`WHOLE_POSITIONS`) for :func:`decode_step`;
 * under a tensor-parallel split (``tp`` on mesh dimensions above size
   1; :mod:`repro_torch.dist.tp`) each rank computes only its heads,
   channels, FFN columns and block of the vocabulary: :class:`_Gathered`
@@ -67,17 +74,23 @@ or, for parameters converted from the reference, afterwards by
   through the Megatron operators, the loss is the vocabulary-parallel
   cross-entropy, and :func:`forward`, :func:`prefill` and
   :func:`decode_step` gather the vocabulary blocks; the cache holds the
-  rank's KV heads, channels and units;
+  rank's KV heads, channels and units; a sub-layer, or the
+  vocabulary, whose widths the split does not divide runs whole on every
+  rank (:func:`repro_torch.dist.tp.sub_split`, the reference's
+  divisibility guard);
 * where ``rules.sp_act`` resolves to ``tp``'s mesh dimensions, the
   residual stream of the full-sequence paths is the rank's block of the
   sequence between sub-layers (the reference's ``shard_constraint`` on
-  ``sp_act``), and the norms' gradients are summed over it.
+  ``sp_act``), and the norms' gradients are summed over it; a sequence
+  the ranks do not divide runs whole.
 
 A mesh of one rank runs the one-device code exactly.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import math
 
@@ -99,10 +112,15 @@ from .moe import ep_shards, gather_moe
 
 __all__ = ["FRONTEND_DIM", "GenericLM", "init_model", "forward", "loss_fn",
            "prefill", "decode_step", "init_cache", "shard_cache",
-           "param_specs", "abstract_params", "Model", "build_model"]
+           "param_specs", "abstract_params", "Model", "build_model",
+           "WHOLE_POSITIONS"]
 
 # Stub modality frontends: precomputed features -> linear adapter.
 FRONTEND_DIM = {"audio": 80, "vision": 1176}
+# The key of a cache whose KV positions are whole on every rank where
+# flash-decoding is on (its shards do not divide ``max_len``); an empty
+# dict, so that code mapping over a cache's tensors passes it through.
+WHOLE_POSITIONS = "whole_positions"
 
 
 def _moe_flags(cfg) -> tuple:
@@ -303,11 +321,64 @@ def _read(params: GenericLM, cfg, moe_impl: str = "scatter",
                      seq=seq)
 
 
-def _seq_split() -> tuple:
+def _seq_split(cfg, batch: dict) -> tuple:
     """``(split, seq)``: the tensor-parallel split, and whether the
-    full-sequence paths split the stream along the sequence."""
+    full-sequence paths split the stream along the sequence: where
+    ``sp_act`` lies on ``tp``'s mesh dimensions and the ranks divide the
+    sequence (the patches and tokens of a vision model; also the frames
+    of an encoder-decoder), else the stream is whole."""
     s = tp.split()
-    return s, s is not None and s.sp
+    if s is None or not s.sp:
+        return s, False
+    def length(k):
+        return torch.as_tensor(batch[k]).shape[1]
+
+    n = length("tokens")
+    if cfg.frontend == "vision" and "patches" in batch:
+        n += length("patches")
+    lens = [n] + ([length("frames")] if cfg.enc_dec else [])
+    return s, all(tp.divides(m, s) for m in lens)
+
+
+def _whole_positions(max_len: int) -> bool:
+    """Whether flash-decoding is on but its sequence shards do not divide
+    ``max_len``: the reference falls back to the plain decode there
+    (``repro/models/attention.py``), and so does the port, with the KV
+    cache's positions whole on every rank."""
+    sp = sp_shards()
+    return sp is not None and max_len % sp[2] != 0
+
+
+@contextlib.contextmanager
+def _guard(rows: int, whole_positions: bool = False):
+    """One entry point's call under the reference's divisibility guard:
+    where the batch shards do not divide its ``rows`` the batch is
+    replicated (the rules lose their ``batch`` axes, as the reference's
+    ``pick_rules`` drops them: every rank runs every row, no gradient is
+    summed over ranks that hold equal rows, and the loss needs no
+    reduction), and with ``whole_positions`` flash-decoding is off (the
+    plain decode, the attention split over ``tp`` as without it)."""
+    ctx = fsdp.active()
+    over = {}
+    if ctx is not None:
+        mesh, rules = ctx
+        if rows % math.prod(mesh.size(i)
+                            for i in fsdp.batch_dims(mesh, rules)):
+            over["batch"] = ()
+        if whole_positions:
+            over["flash_decode"] = False
+    if not over:
+        yield
+        return
+    with sharding_context(mesh, dataclasses.replace(rules, **over)):
+        yield
+
+
+def _marked(cache: dict, whole_positions: bool) -> dict:
+    """``cache``, with :data:`WHOLE_POSITIONS` where its positions are
+    whole under flash-decoding's rules."""
+    return dict(cache, **{WHOLE_POSITIONS: {}}) if whole_positions \
+        else cache
 
 
 def _rows(batch: dict, device) -> dict:
@@ -383,7 +454,8 @@ def _embed_inputs(params: GenericLM, cfg, batch: dict, dtype,
     s = tp.split() if seq else None
     vision = cfg.frontend == "vision" and "patches" in batch
     x = embed_lookup(params, tokens, impl=cfg.gather_impl,
-                     compute_dtype=dtype, seq=seq and not vision)
+                     compute_dtype=dtype, seq=seq and not vision,
+                     vocab=cfg.vocab)
     if vision:
         patches = dense(params, "frontend",
                         _on(params, batch["patches"], torch.float32), dtype)
@@ -420,7 +492,7 @@ def _encode(params: GenericLM, cfg, batch: dict, dtype, seq: bool):
         x = tp.leave(x, tp.split(), False, True)
     for block in params.enc_layers:
         x, _ = block_forward(block, cfg, "attn", False, x, pos,
-                             causal=False, dtype=dtype)
+                             causal=False, dtype=dtype, seq=seq)
     return apply_norm(params, "norm_enc", x, cfg.norm), pos
 
 
@@ -428,7 +500,7 @@ def _context(params, cfg, batch, dtype, seq: bool = False):
     """The embedded inputs and, for an encoder-decoder, the keyword
     arguments its decoder blocks take."""
     x, positions = _embed_inputs(params, cfg, batch, dtype, seq)
-    kw = {"cross": cfg.enc_dec}
+    kw = {"cross": cfg.enc_dec, "seq": seq}
     if cfg.enc_dec:
         kw["enc_out"], kw["enc_positions"] = _encode(params, cfg, batch,
                                                      dtype, seq)
@@ -466,9 +538,11 @@ def forward(params: GenericLM, cfg, batch: dict, *,
     activations are dropped after the forward and recomputed in the
     backward, as the reference's ``jax.checkpoint`` of its scanned
     period.  The values are the same either way."""
-    logits, aux = _forward(params, cfg, _rows(batch, params.device),
-                           moe_impl, remat)
-    return _all_rows(tp.full_vocab(logits, tp.split())), aux
+    with _guard(len(batch["tokens"])):
+        logits, aux = _forward(params, cfg, _rows(batch, params.device),
+                               moe_impl, remat)
+        return _all_rows(tp.full_vocab(logits,
+                                       tp.vocab_split(cfg.vocab))), aux
 
 
 def _forward(params: GenericLM, cfg, batch: dict, moe_impl: str,
@@ -478,7 +552,7 @@ def _forward(params: GenericLM, cfg, batch: dict, moe_impl: str,
     dtype = compute_dtype(cfg)
     remat = remat and torch.is_grad_enabled() and any(
         p.requires_grad for p in params.parameters())
-    _, seq = _seq_split()
+    _, seq = _seq_split(cfg, batch)
     params = _read(params, cfg, moe_impl, seq)
     x, positions, kw = _context(params, cfg, batch, dtype, seq)
     auxs = []
@@ -491,7 +565,8 @@ def _forward(params: GenericLM, cfg, batch: dict, moe_impl: str,
             x, a = body(x)
         auxs.append(a)
     x = apply_norm(params, "norm_f", x, cfg.norm)
-    return (unembed(params, x, cfg.tie_embeddings, dtype, seq=seq),
+    return (unembed(params, x, cfg.tie_embeddings, dtype, seq=seq,
+                    vocab=cfg.vocab),
             torch.stack(auxs).sum())
 
 
@@ -503,7 +578,14 @@ def loss_fn(params: GenericLM, cfg, batch: dict, *, aux_weight: float = 0.01,
     plus ``aux_weight`` times the auxiliary loss.  Returns ``(loss,
     {"lm_loss", "aux_loss"})``, as the reference's.  Under a mesh the
     value is the global mean and each rank differentiates its part."""
-    batch = _rows(batch, params.device)
+    with _guard(len(batch["tokens"])):
+        return _loss(params, cfg, _rows(batch, params.device), aux_weight,
+                     moe_impl, remat)
+
+
+def _loss(params: GenericLM, cfg, batch: dict, aux_weight: float,
+          moe_impl: str, remat: bool):
+    """:func:`loss_fn` on this rank's rows."""
     logits, aux = _forward(params, cfg, batch, moe_impl, remat)
     labels = _on(params, batch["labels"])
     if logits.shape[1] != labels.shape[1]:      # vlm: patch positions
@@ -511,7 +593,7 @@ def loss_fn(params: GenericLM, cfg, batch: dict, *, aux_weight: float = 0.01,
                        value=-1)
     mask = (labels >= 0).to(torch.float32)
     safe = labels.clamp_min(0)
-    s = tp.split()
+    s = tp.vocab_split(cfg.vocab)
     if s is None:
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
@@ -529,15 +611,13 @@ def loss_fn(params: GenericLM, cfg, batch: dict, *, aux_weight: float = 0.01,
 
 
 def _cache_rows(batch: int) -> int:
-    """This rank's rows of a cache of ``batch`` sequences."""
+    """This rank's rows of a cache of ``batch`` sequences: all of them
+    where the batch shards do not divide them (:func:`_guard`)."""
     ctx = fsdp.active()
     if ctx is None:
         return batch
     n = math.prod(ctx[0].size(i) for i in fsdp.batch_dims(*ctx))
-    if batch % n:
-        raise ValueError(f"a batch of {batch} rows does not divide the {n} "
-                         f"batch shards of the mesh")
-    return batch // n
+    return batch if batch % n else batch // n
 
 
 def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0, *,
@@ -547,19 +627,22 @@ def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0, *,
     axis) and ``enc_len`` of the encoder's keys and values.  Under a mesh
     it is this rank's: its rows, its KV heads, channels and units under a
     tensor-parallel split and, under flash-decoding, its slice of the
-    positions (nothing else is allocated)."""
+    positions (nothing else is allocated; a ``max_len`` its shards do not
+    divide keeps them whole, :data:`WHOLE_POSITIONS`)."""
     dev = resolve_device(device)
     dtype = compute_dtype(cfg)
-    one = {f"b{j}": init_block_cache(cfg, kind, _cache_rows(batch),
-                                     _cache_len(max_len) if kind == "attn"
-                                     else max_len,
-                                     cross=cfg.enc_dec, enc_len=enc_len,
-                                     dtype=dtype, device=dev)
-           for j, kind in enumerate(cfg.block_pattern)}
-    return {"blocks": {
+    whole = _whole_positions(max_len)
+    with _guard(batch, whole):
+        one = {f"b{j}": init_block_cache(
+                   cfg, kind, _cache_rows(batch),
+                   _cache_len(max_len) if kind == "attn" else max_len,
+                   cross=cfg.enc_dec, enc_len=enc_len, dtype=dtype,
+                   device=dev)
+               for j, kind in enumerate(cfg.block_pattern)}
+    return _marked({"blocks": {
         name: {k: v.unsqueeze(0).repeat((cfg.n_periods,) + (1,) * v.ndim)
                for k, v in leaves.items()}
-        for name, leaves in one.items()}}
+        for name, leaves in one.items()}}, whole)
 
 
 _KV = ("k", "v", "k_s", "v_s")
@@ -567,17 +650,12 @@ _KV = ("k", "v", "k_s", "v_s")
 
 def _cache_len(max_len: int) -> int:
     """This rank's positions of a KV cache of ``max_len``: its slice
-    under flash-decoding, which ``max_len`` must divide (the reference
-    falls back to the plain decode there; a rank's cache here must know
-    its slice)."""
+    under flash-decoding, or all of them where its sequence shards do
+    not divide ``max_len`` (the plain decode, :func:`_whole_positions`)."""
     sp = sp_shards()
-    if sp is None:
+    if sp is None or max_len % sp[2]:
         return max_len
-    n = sp[2]
-    if max_len % n:
-        raise ValueError(f"max_len={max_len} does not divide the {n} "
-                         f"sequence shards of flash-decoding")
-    return max_len // n
+    return max_len // sp[2]
 
 
 # The tensor-parallel dimension of each stacked cache leaf ``(periods,
@@ -599,13 +677,13 @@ def _tp_cut(cfg, kind: str, k: str, v: torch.Tensor, s) -> torch.Tensor:
         dim, unit = _SPLIT_DIM[kind][k]
     else:
         return v
+    sub = tp.sub_split(cfg, "attn" if unit == "kv" else kind, s)
+    if sub is None:                     # the sub-layer runs whole
+        return v
     if unit == "kv":
-        if tp.attention_split(s) is None:
-            return v
-        k0, k1 = tp.kv_heads(cfg, s)
+        k0, k1 = tp.kv_heads(cfg, sub)
         return v.narrow(dim, k0, k1 - k0)
-    what = f"{kind} cache leaf {k!r}"
-    off, size = tp.block_of(v.shape[dim], s, what)
+    off, size = tp.block_of(v.shape[dim], sub, f"{kind} cache leaf {k!r}")
     return v.narrow(dim, off, size)
 
 
@@ -638,9 +716,16 @@ def shard_cache(cfg, cache: dict) -> dict:
     """This rank's block of a full cache (every rank's identical copy,
     e.g. from :func:`prefill` outside the context): its rows, its KV
     heads, channels and units under a tensor-parallel split and, under
-    flash-decoding, its slice of each KV cache's positions.  Off a mesh,
-    ``cache`` itself."""
-    return _keep_block(cfg, cache, rows=True)
+    flash-decoding, its slice of each KV cache's positions (the
+    divisibility guard as in :func:`init_cache`).  Off a mesh, ``cache``
+    itself."""
+    leaves = [(j, k, v) for j, kind in enumerate(cfg.block_pattern)
+              for k, v in cache["blocks"][f"b{j}"].items()]
+    kv = [v for j, k, v in leaves
+          if cfg.block_pattern[j] == "attn" and k == "k"]
+    whole = bool(kv) and _whole_positions(kv[0].shape[2])
+    with _guard(leaves[0][2].shape[1], whole):
+        return _marked(_keep_block(cfg, cache, rows=True), whole)
 
 
 def prefill(params: GenericLM, cfg, batch: dict, max_len: int, *,
@@ -648,9 +733,18 @@ def prefill(params: GenericLM, cfg, batch: dict, max_len: int, *,
     """Run the prompt; return (last-position logits ``(B, 1, vocab)``,
     filled cache).  ``max_len`` is the cache's, as in :func:`init_cache`
     (under a mesh the cache is this rank's, as there)."""
+    whole = _whole_positions(max_len)
+    with _guard(len(batch["tokens"]), whole):
+        logits, cache = _prefill(params, cfg, _rows(batch, params.device),
+                                 max_len, moe_impl)
+    return logits, _marked(cache, whole)
+
+
+def _prefill(params: GenericLM, cfg, batch: dict, max_len: int,
+             moe_impl: str):
+    """:func:`prefill` on this rank's rows."""
     dtype = compute_dtype(cfg)
-    batch = _rows(batch, params.device)
-    s, seq = _seq_split()
+    s, seq = _seq_split(cfg, batch)
     params = _read(params, cfg, moe_impl, seq)
     x, positions, kw = _context(params, cfg, batch, dtype, seq)
     flags = _moe_flags(cfg)
@@ -661,8 +755,9 @@ def prefill(params: GenericLM, cfg, batch: dict, max_len: int, *,
                                     moe_impl=moe_impl, dtype=dtype, **kw)
         caches[j].append(cache)
     x = tp.seq_full(apply_norm(params, "norm_f", x, cfg.norm), s, seq)
-    logits = unembed(params, x[:, -1:], cfg.tie_embeddings, dtype)
-    return (_all_rows(tp.full_vocab(logits, s)),
+    logits = unembed(params, x[:, -1:], cfg.tie_embeddings, dtype,
+                     vocab=cfg.vocab)
+    return (_all_rows(tp.full_vocab(logits, tp.vocab_split(cfg.vocab))),
             _keep_block(cfg, _stack(caches), rows=False))
 
 
@@ -673,12 +768,21 @@ def decode_step(params: GenericLM, cfg, cache: dict, tokens, index, *,
     cache there and rotate by it; the recurrent kinds carry their
     position in their state).  Under a mesh ``cache`` is this rank's
     (:func:`init_cache`) and the logits are every rank's rows."""
+    whole = WHOLE_POSITIONS in cache
+    with _guard(len(tokens), whole):
+        logits, cache = _decode(params, cfg, cache, tokens, index,
+                                moe_impl)
+    return logits, _marked(cache, whole)
+
+
+def _decode(params: GenericLM, cfg, cache: dict, tokens, index,
+            moe_impl: str):
+    """:func:`decode_step` on this rank's rows."""
     dtype = compute_dtype(cfg)
     tokens = _rows({"tokens": _on(params, tokens)}, params.device)["tokens"]
-    s = tp.split()
     params = _read(params, cfg, moe_impl)
     x = embed_lookup(params, tokens, impl=cfg.gather_impl,
-                     compute_dtype=dtype)
+                     compute_dtype=dtype, vocab=cfg.vocab)
     if cfg.rope == "none":
         pos = torch.full(tuple(tokens.shape), int(index), dtype=torch.int32,
                          device=x.device)
@@ -692,5 +796,6 @@ def decode_step(params: GenericLM, cfg, cache: dict, tokens, index, *,
                            dtype=dtype)
         caches[j].append(nc)
     x = apply_norm(params, "norm_f", x, cfg.norm)
-    logits = unembed(params, x, cfg.tie_embeddings, dtype)
-    return _all_rows(tp.full_vocab(logits, s)), _stack(caches)
+    logits = unembed(params, x, cfg.tie_embeddings, dtype, vocab=cfg.vocab)
+    return (_all_rows(tp.full_vocab(logits, tp.vocab_split(cfg.vocab))),
+            _stack(caches))

@@ -29,7 +29,10 @@ in its expert counts the assignments of the lower batch ranks first
 (the global flat order; an all-gather of one count per expert), and the
 aux loss is computed from the all-reduced per-expert sums.  Each rank
 computes only its own buffer rows (an expert's rows are independent).
-``einsum`` and ``grouped`` refuse a split batch.  Manual EP follows the
+``einsum`` and ``grouped`` gather the rows over the batch axes, run the
+one-device implementation on all of them and keep this rank's rows
+(their gradient: the cut), with the aux loss from this rank's rows as
+``scatter``'s.  Manual EP follows the
 reference's schedule: each rank routes its tokens against the full
 router, scatters only the assignments bound for its ``E / ep`` experts
 into a buffer of group-local capacity ``moe_capacity(cfg, N_local)``,
@@ -245,6 +248,72 @@ def _global_aux(cfg, probs, idx, split) -> torch.Tensor:
     return E * torch.sum(f * P)
 
 
+def _all_rows_moe(params, cfg, x: torch.Tensor, impl: str, dtype, groups,
+                  split):
+    """``einsum`` or ``grouped`` under a split batch (module docstring):
+    every rank's rows gathered, the one-device implementation on them,
+    this rank's rows kept; the aux loss of :func:`_global_aux` on this
+    rank's rows, its gradient this rank's part."""
+    mesh, dims, _ = split
+    rules = fsdp.active()[1]
+    whole = fsdp.gather_rows(x, mesh, rules)
+    B, S, d = whole.shape
+    xt = whole.reshape(B * S, d)
+    probs, gates, idx = _route(params, cfg, xt.float())
+    if impl == "einsum":
+        y = _einsum_dispatch(params, cfg, xt.float(), gates, idx,
+                             moe_capacity(cfg, B * S), dtype)
+    else:
+        y = _grouped_dispatch(params, cfg, xt, gates, idx,
+                              moe_capacity(cfg, B * S), dtype, groups)
+    own = fsdp.batch_block(y.reshape(B, S, d).to(x.dtype), mesh, rules)
+    mine = fsdp.batch_block(probs.reshape(B, S, -1), mesh, rules)
+    ids = fsdp.batch_block(idx.reshape(B, S, -1), mesh, rules)
+    aux = _global_aux(cfg, mine.reshape(-1, cfg.n_experts),
+                      ids.reshape(-1, cfg.top_k), split)
+    return own, aux
+
+
+def _einsum_dispatch(params, cfg, xf, gates, idx, C: int, dtype):
+    """GShard-style dense dispatch of ``N`` tokens ``xf`` (float32) at
+    capacity ``C``: (N, d) float32."""
+    E = cfg.n_experts
+    onehot = F.one_hot(idx, E).float()                     # (N, k, E)
+    sel = onehot.sum(1)                                    # (N, E)
+    pos = torch.cumsum(sel, 0) - sel                       # pre-count
+    pos_k = torch.einsum("nke,ne->nk", onehot, pos)        # (N, k)
+    keep = pos_k < C
+    # Index C (a dropped assignment) is an all-zero one-hot row.
+    slot = F.one_hot(torch.where(keep, pos_k, C).long(),
+                     C + 1)[..., :C].float()               # (N, k, C)
+    disp = torch.einsum("nke,nkc->nec", onehot, slot)      # (N, E, C)
+    buf = torch.einsum("nec,nd->ecd", disp, xf).to(dtype)
+    out_buf = _expert_ffn(params, cfg, buf, dtype).float()
+    comb = torch.einsum("nec,nk,nke->nec", disp, gates, onehot)
+    return torch.einsum("nec,ecd->nd", comb, out_buf)
+
+
+def _grouped_dispatch(params, cfg, xt, gates, idx, C: int, dtype,
+                      groups):
+    """Capacity counted per dispatch group of ``N`` tokens ``xt``: (N, d)
+    float32."""
+    N = xt.shape[0]
+    E, k = cfg.n_experts, cfg.top_k
+    G = min(groups or 32, N)
+    while N % G:
+        G -= 1
+    Cg = max(8, -(-C // G) // 8 * 8)
+    # Group-major (e, g) keys: a stable sort over the whole list ranks
+    # each group's assignments as the reference's per-group sort.
+    e_g = idx.reshape(G, N // G * k)
+    g_ix = torch.arange(G, device=xt.device)[:, None]
+    pos = _positions_in_expert((e_g * G + g_ix).reshape(-1), E * G)
+    keep = pos < Cg
+    slot = torch.where(keep, (e_g * G + g_ix).reshape(-1) * Cg + pos,
+                       E * G * Cg)
+    return _dispatch(params, cfg, xt, gates, slot, keep, E * G * Cg, dtype)
+
+
 def moe_forward(params, cfg, x: torch.Tensor, *, impl: str = "scatter",
                 dtype=torch.bfloat16, groups: int | None = None):
     """MoE FFN.  ``x``: (B, S, d) -> ((B, S, d), aux loss); under a mesh
@@ -259,44 +328,19 @@ def moe_forward(params, cfg, x: torch.Tensor, *, impl: str = "scatter",
     xt = x.reshape(N, d)
     xf = xt.float()
     C = moe_capacity(cfg, N)
-    E, k = cfg.n_experts, cfg.top_k
+    E = cfg.n_experts
 
-    probs, gates, idx = _route(params, cfg, xf)
     split = _split_batch()
-    if split is not None and impl != "scatter":
-        raise ValueError(f"moe impl {impl!r} under a batch-split mesh: the "
-                         f"port keeps global semantics for scatter only")
+    if split is not None and impl in ("einsum", "grouped"):
+        return _all_rows_moe(params, cfg, x, impl, dtype, groups, split)
+    probs, gates, idx = _route(params, cfg, xf)
     aux = (_aux_loss(cfg, probs, idx) if split is None
            else _global_aux(cfg, probs, idx, split))
     if impl == "einsum":
-        onehot = F.one_hot(idx, E).float()                 # (N, k, E)
-        sel = onehot.sum(1)                                # (N, E)
-        pos = torch.cumsum(sel, 0) - sel                   # pre-count
-        pos_k = torch.einsum("nke,ne->nk", onehot, pos)    # (N, k)
-        keep = pos_k < C
-        # Index C (a dropped assignment) is an all-zero one-hot row.
-        slot = F.one_hot(torch.where(keep, pos_k, C).long(),
-                         C + 1)[..., :C].float()           # (N, k, C)
-        disp = torch.einsum("nke,nkc->nec", onehot, slot)  # (N, E, C)
-        buf = torch.einsum("nec,nd->ecd", disp, xf).to(dtype)
-        out_buf = _expert_ffn(params, cfg, buf, dtype).float()
-        comb = torch.einsum("nec,nk,nke->nec", disp, gates, onehot)
-        y = torch.einsum("nec,ecd->nd", comb, out_buf)
+        y = _einsum_dispatch(params, cfg, xf, gates, idx, C, dtype)
         return y.reshape(B, S, d).to(x.dtype), aux
     if impl == "grouped":
-        G = min(groups or 32, N)
-        while N % G:
-            G -= 1
-        Cg = max(8, -(-C // G) // 8 * 8)
-        # Group-major (e, g) keys: a stable sort over the whole list ranks
-        # each group's assignments as the reference's per-group sort.
-        e_g = idx.reshape(G, N // G * k)
-        g_ix = torch.arange(G, device=x.device)[:, None]
-        pos = _positions_in_expert((e_g * G + g_ix).reshape(-1), E * G)
-        keep = pos < Cg
-        slot = torch.where(keep, (e_g * G + g_ix).reshape(-1) * Cg + pos,
-                           E * G * Cg)
-        y = _dispatch(params, cfg, xt, gates, slot, keep, E * G * Cg, dtype)
+        y = _grouped_dispatch(params, cfg, xt, gates, idx, C, dtype, groups)
         return y.reshape(B, S, d).to(x.dtype), aux
     if impl != "scatter":
         raise ValueError(f"unknown moe impl {impl!r}")

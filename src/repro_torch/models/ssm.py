@@ -25,7 +25,9 @@ The ``-inf`` stabiliser starts (``m``) give 0, never NaN: ``exp(-inf) =
 Under a tensor-parallel split (:mod:`repro_torch.dist.tp`) each mixer
 takes a rank's blocks (the fused ``in_proj``, ``qkv``, ``gates`` and
 ``zifo`` cut part by part) and runs on its channels or heads: the
-widths come from the weights, the caches' from the split.  Mamba's
+widths come from the weights, the caches' from the split.  A mixer whose
+heads or channels the split does not divide takes its weights whole and
+runs as on one device (:func:`repro_torch.dist.tp.sub_split`).  Mamba's
 ``x_proj`` is row-parallel into outputs every channel reads, so its
 partial sums are all-reduced (:func:`tp.shared`); the out-projections'
 partial sums are reduced by the block.
@@ -110,7 +112,8 @@ def _mamba_in(params, cfg, x, dtype, carry=None):
     xi, conv = _mamba_conv(xi, params["conv_w"].to(dtype),
                            params["conv_b"].to(dtype), carry)
     xi = silu(xi)
-    bcd = tp.shared(dense(params, "x_proj", xi, dtype), tp.split()).float()
+    bcd = tp.shared(dense(params, "x_proj", xi, dtype),
+                    tp.sub_split(cfg, "mamba", tp.split())).float()
     # dt is one value a token, broadcast over d_inner by dt_bias (as the
     # reference's x_proj of 2 * ds + 1 outputs).
     Bm, Cm, dt = bcd[..., :ds], bcd[..., ds:2 * ds], bcd[..., -1:]
@@ -156,7 +159,7 @@ def mamba_forward(params, cfg, x: torch.Tensor, *, chunk: int = 256,
 
 def init_mamba_cache(cfg, batch: int, dtype=torch.float32, *,
                      device) -> dict:
-    di = tp.local_inner(cfg, "mamba d_inner")
+    di = tp.local_inner(cfg, "mamba")
     return {
         "conv": torch.zeros((batch, cfg.d_conv - 1, di), dtype=dtype,
                             device=device),
@@ -196,10 +199,10 @@ def _mlstm_hd(cfg) -> int:
 
 
 def _mlstm_local_heads(cfg) -> int:
-    """This rank's mLSTM heads; heads a split does not divide raise."""
-    s = tp.split()
-    return cfg.n_heads if s is None else tp.block_of(
-        cfg.n_heads, s, "mlstm n_heads (qkv, gates)")[1]
+    """This rank's mLSTM heads: all of them where the mixer runs whole
+    (heads or ``d_inner`` that the split does not divide)."""
+    s = tp.sub_split(cfg, "mlstm", tp.split())
+    return cfg.n_heads if s is None else cfg.n_heads // s.n
 
 
 def _mlstm_heads(cfg, t: torch.Tensor) -> torch.Tensor:
@@ -341,7 +344,7 @@ def slstm_forward(params, cfg, x: torch.Tensor, *, dtype=torch.bfloat16,
 
 def init_slstm_cache(cfg, batch: int, *, device) -> dict:
     return _state_dict(init_slstm_state(
-        batch, tp.local_inner(cfg, "slstm d_inner"), device=device))
+        batch, tp.local_inner(cfg, "slstm"), device=device))
 
 
 def slstm_step(params, cfg, x: torch.Tensor, cache: dict, *,

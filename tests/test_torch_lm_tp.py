@@ -26,8 +26,8 @@ attention keeps its heads whole and the positions split, the MLP runs at
 vocabulary-parallel embedding (``take`` and ``onehot``, ids on both
 sides of the block boundary and outside the vocabulary) and
 cross-entropy (the loss and its gradient on the block) against the
-unsplit ones; the refusals: a vocabulary, an FFN width and mLSTM
-heads that tp=2 does not divide raise ``ValueError`` naming the leaf;
+unsplit ones; the divisibility guard: a vocabulary, an FFN width and
+mLSTM heads that tp=2 does not divide run whole, at their full widths;
 and ``init_model(mesh=, rules=)``, which places each parameter as it is
 drawn, equal to a whole draw placed by ``place_params``.
 
@@ -204,8 +204,9 @@ def vocab_ops(mesh):
     return out
 
 
-def refusals(mesh):
-    # Shapes tp=2 does not divide raise ValueError naming the leaf.
+def replicated(mesh):
+    # Shapes tp=2 does not divide run whole (the divisibility guard): the
+    # dense calls each config makes, with their widths.
     rules = ShardingRules(batch=("data",), fsdp=(), tp=("model",))
     out = {}
     for arch, over in (("chatglm3-6b", {"vocab": 255}),
@@ -215,12 +216,11 @@ def refusals(mesh):
         model = M.init_model(cfg, seed=0, device="cpu", mesh=mesh,
                              rules=rules)
         toks = np.zeros((2, 4), dtype=np.int64)
-        try:
-            with torch.no_grad(), sharding_context(mesh, rules):
-                M.forward(model, cfg, {"tokens": toks}, remat=False)
-            out[json.dumps(over)] = "no error"
-        except ValueError as e:
-            out[json.dumps(over)] = str(e)
+        del WIDTHS[:]
+        with torch.no_grad(), sharding_context(mesh, rules):
+            lg, _ = M.forward(model, cfg, {"tokens": toks}, remat=False)
+        out[json.dumps(over)] = {"widths": list(WIDTHS),
+                                 "logits": list(lg.shape)}
     return out
 
 
@@ -245,7 +245,7 @@ def main():
                       for case, c in spec["cases"].items()}}
     if spec.get("units"):
         out["vocab"] = vocab_ops(mesh)
-        out["refusals"] = refusals(mesh)
+        out["replicated"] = replicated(mesh)
         out["placed_as_drawn"] = placed_as_drawn(mesh)
     return out
 """
@@ -466,11 +466,30 @@ def test_init_model_places_each_parameter_as_drawn(tp2):
 
 
 def test_indivisible_splits_raise_naming_the_leaf(tp2):
-    got = tp2["got"]["refusals"]
-    assert "'embed'" in got[json.dumps({"vocab": 255})]
-    assert "'w_gate'" in got[json.dumps({"d_ff": 127})]
-    assert "mlstm n_heads" in got[json.dumps({"n_heads": 1})] \
-        or "'gates'" in got[json.dumps({"n_heads": 1})]
+    """They no longer raise: a vocabulary, an FFN width and mLSTM heads
+    that tp = 2 does not divide run whole on each rank, at their full
+    widths in the ``dense`` log, while what divides stays split (their
+    values against the reference: ``tests/test_torch_lm_replicate.py``)."""
+    got = tp2["got"]["replicated"]
+    cfg = ARCHS["chatglm3-6b"].reduced()
+    xl = ARCHS["xlstm-125m"].reduced()
+
+    def widths(over):
+        run = got[json.dumps(over)]
+        return run["logits"], {(n, i, o) for n, i, o in run["widths"]}
+
+    logits, seen = widths({"vocab": 255})
+    assert logits[-1] == 255 and ("unembed", 0, 255) in seen
+    assert ("w_gate", cfg.d_model, cfg.d_ff // 2) in seen
+    logits, seen = widths({"d_ff": 127})
+    assert ("w_gate", cfg.d_model, 127) in seen
+    assert ("w_down", 127, cfg.d_model) in seen
+    assert ("unembed", 0, cfg.vocab // 2) in seen
+    logits, seen = widths({"n_heads": 1})
+    assert ("gates", xl.d_model, 2) in seen
+    assert ("qkv", xl.d_model, 3 * xl.d_inner) in seen
+    assert ("out_proj", xl.d_inner, xl.d_model) in seen
+    assert ("zifo", xl.d_model, 4 * xl.d_inner // 2) in seen
 
 
 def test_launcher_reports_what_tp_and_sp_act_split():
