@@ -43,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from .. import spans
 from ..core.geometry import Geometry
 from ..streaming import ProjectionChunk, ReconstructionEngine
 
@@ -91,7 +92,6 @@ class ScanTicket:
     deadline: float | None = None
     arrived: float = 0.0              # clock time open_scan admitted it
     admitted_at: float | None = None  # clock time it got a slot
-    first_submit: float | None = None
     finished_at: float | None = None
     state: str = "pending"            # pending | active | done | aborted
     sid: int | None = None            # backend scan id once active
@@ -432,6 +432,14 @@ class CTFrontDoor:
         it.  The returned ticket is ``pending`` until a slot frees and
         the policy picks it.
         """
+        with spans.span("frontdoor.open_scan") as sp:
+            ticket = self._open(tenant, n_proj, deadline)
+            if sp:
+                sp.tid = ticket.tid
+        await asyncio.sleep(0)
+        return ticket
+
+    def _open(self, tenant, n_proj, deadline) -> ScanTicket:
         self.pump()
         n = int(n_proj) if n_proj is not None else self.geom.n_proj
         if n <= 0:
@@ -450,8 +458,8 @@ class CTFrontDoor:
         self._next_tid += 1
         self._pending.append(ticket)
         self.stats["opened"] += 1
+        spans.gauge("frontdoor.pending", len(self._pending))
         self.pump()
-        await asyncio.sleep(0)
         return ticket
 
     async def submit(self, ticket: ScanTicket,
@@ -462,32 +470,32 @@ class CTFrontDoor:
         bounded by the scan's declared ``n_proj``, which over-submission
         breaches loudly here.
         """
-        if not isinstance(chunk, ProjectionChunk):
-            raise TypeError(
-                f"submit takes a ProjectionChunk, got "
-                f"{type(chunk).__name__}")
-        if ticket.settled:
-            raise ValueError(
-                f"scan {ticket.tid} already {ticket.state}")
-        k = chunk.n
-        if ticket.received + k > ticket.n_proj:
-            raise ValueError(
-                f"scan {ticket.tid} declared {ticket.n_proj} projections; "
-                f"{ticket.received + k} submitted")
-        if ticket.first_submit is None:
-            ticket.first_submit = self._clock()
-        ticket.received += k
-        if ticket.state == "active":
-            self._backend.submit(ticket.sid, chunk)
-        else:
-            ticket.buffered.append(chunk)
-        self.pump()
+        with spans.span("frontdoor.submit", sid=ticket.sid, tid=ticket.tid):
+            if not isinstance(chunk, ProjectionChunk):
+                raise TypeError(
+                    f"submit takes a ProjectionChunk, got "
+                    f"{type(chunk).__name__}")
+            if ticket.settled:
+                raise ValueError(
+                    f"scan {ticket.tid} already {ticket.state}")
+            k = chunk.n
+            if ticket.received + k > ticket.n_proj:
+                raise ValueError(
+                    f"scan {ticket.tid} declared {ticket.n_proj} "
+                    f"projections; {ticket.received + k} submitted")
+            ticket.received += k
+            if ticket.state == "active":
+                self._backend.submit(ticket.sid, chunk)
+            else:
+                ticket.buffered.append(chunk)
+            self.pump()
         await asyncio.sleep(0)
 
     async def result(self, ticket: ScanTicket, timeout: float | None = None):
         """Await the finished volume (raises :class:`ScanAborted` for a
         cancelled ticket, ``asyncio.TimeoutError`` past ``timeout``)."""
-        self.pump()
+        with spans.span("frontdoor.result", sid=ticket.sid, tid=ticket.tid):
+            self.pump()
         if not ticket.settled:
             if timeout is None:
                 await ticket._event.wait()
@@ -507,6 +515,7 @@ class CTFrontDoor:
             return False
         if ticket.state == "pending":
             self._pending.remove(ticket)
+            spans.gauge("frontdoor.pending", len(self._pending))
         else:                                       # active
             self._backend.abort(ticket.sid)
             del self._active[ticket.tid]
@@ -527,12 +536,13 @@ class CTFrontDoor:
         """Admit while slots are free, advance the backend, retire
         finished scans.  Loops until a fixed point so a retirement's
         freed slot admits in the same call."""
-        while True:
-            admitted = self._admit_ready()
-            self._backend.pump()
-            completed = self._reap_completions()
-            if not admitted and not completed:
-                return
+        with spans.span("frontdoor.pump"):
+            while True:
+                admitted = self._admit_ready()
+                self._backend.pump()
+                completed = self._reap_completions()
+                if not admitted and not completed:
+                    return
 
     def _admit_ready(self) -> bool:
         any_admitted = False
@@ -549,18 +559,24 @@ class CTFrontDoor:
                     f"outside the pending queue (len "
                     f"{len(self._pending)})")
             ticket = self._pending.pop(i)
-            ticket.sid = self._backend.begin(ticket.n_proj)
-            ticket.state = "active"
-            ticket.admitted_at = now
-            self._active[ticket.tid] = ticket
-            self._active_by_tenant[ticket.tenant] = \
-                self._active_by_tenant.get(ticket.tenant, 0) + 1
-            self._admitted_by_tenant[ticket.tenant] = \
-                self._admitted_by_tenant.get(ticket.tenant, 0) + 1
-            self.stats["admitted"] += 1
-            for chunk in ticket.buffered:
-                self._backend.submit(ticket.sid, chunk)
-            ticket.buffered.clear()
+            with spans.span("frontdoor.admit", tid=ticket.tid) as sp:
+                ticket.sid = self._backend.begin(ticket.n_proj)
+                ticket.state = "active"
+                ticket.admitted_at = now
+                self._active[ticket.tid] = ticket
+                self._active_by_tenant[ticket.tenant] = \
+                    self._active_by_tenant.get(ticket.tenant, 0) + 1
+                self._admitted_by_tenant[ticket.tenant] = \
+                    self._admitted_by_tenant.get(ticket.tenant, 0) + 1
+                self.stats["admitted"] += 1
+                spans.gauge("frontdoor.pending", len(self._pending))
+                if sp:
+                    sp.sid = ticket.sid
+                    sp.attrs.update(
+                        views=sum(c.n for c in ticket.buffered))
+                for chunk in ticket.buffered:
+                    self._backend.submit(ticket.sid, chunk)
+                ticket.buffered.clear()
             any_admitted = True
         return any_admitted
 

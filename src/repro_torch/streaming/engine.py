@@ -33,6 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import spans
 from .._device import as_f32, resolve_device
 from ..core.backproject import (GeomStatic, _resolve_plan, check_windows,
                                 fold_projections)
@@ -206,7 +207,24 @@ class ReconstructionEngine:
         scan = self.scans[sid]
         if scan.done:
             raise ValueError(f"scan {sid} already finished")
-        projs, mats, idx = chunk.arrays(self.device)
+        with spans.span("engine.submit", sid=sid) as sp:
+            k = self._submit(scan, chunk)
+            if sp:
+                sp.attrs.update(views=k)
+
+    def _submit(self, scan: ScanState, chunk: ProjectionChunk) -> int:
+        # Three copies from the host to the card: the views (none where
+        # they are on the card already), the Parker rows' indices and the
+        # matrices.  Each blocks the host until the stream has drained up
+        # to it; a span's ``bytes`` counts what crossed to the card.
+        card = self.device.type == "cuda"
+        with spans.span("engine.copy.views", sid=scan.sid) as sp:
+            projs, mats, idx = chunk.arrays(self.device)
+            if sp:
+                src = chunk.projections
+                n = projs.nbytes if card and not (
+                    torch.is_tensor(src) and src.is_cuda) else 0
+                sp.attrs.update(bytes=n, blocks=n > 0)
         k = projs.shape[0]
         if mats.shape[0] != k or idx.shape != (k,):
             raise ValueError(
@@ -217,20 +235,28 @@ class ReconstructionEngine:
                 f"angle indices must lie in [0, {self.geom.n_proj})")
         if scan.received + k > scan.n_proj:
             raise ValueError(
-                f"scan {sid} declared {scan.n_proj} projections; "
+                f"scan {scan.sid} declared {scan.n_proj} projections; "
                 f"{scan.received + k} submitted")
         if self.validate:
             check_windows(self.geom, mats, self.exec_plan, self.device)
-        pw = None
+        rows = None
         if self.plan.parker is not None:
-            pw = self.plan.parker[torch.as_tensor(idx, dtype=torch.int64,
-                                                  device=self.device)]
-        filt = apply_filter(projs, self.plan, pw)
-        mats32 = torch.as_tensor(mats.astype(np.float32), device=self.device)
+            with spans.span("engine.copy.parker", sid=scan.sid,
+                            bytes=8 * k * card, blocks=card):
+                rows = torch.as_tensor(idx, dtype=torch.int64,
+                                       device=self.device)
+        with spans.span("engine.filter", sid=scan.sid, views=k):
+            pw = None if rows is None else self.plan.parker[rows]
+            filt = apply_filter(projs, self.plan, pw)
+        with spans.span("engine.copy.matrices", sid=scan.sid,
+                        bytes=48 * k * card, blocks=card):
+            mats32 = torch.as_tensor(mats.astype(np.float32),
+                                     device=self.device)
         for i in range(k):
             scan.pending.append((filt[i], mats32[i]))
         scan.received += k
         self.step()
+        return k
 
     # ------------------------------------------------------------------
     # Fold path
@@ -249,6 +275,10 @@ class ReconstructionEngine:
         projections, or its scan is complete and a remainder is staged.
         Returns True when any fold or retirement happened.
         """
+        with spans.span("engine.step"):
+            return self._step()
+
+    def _step(self) -> bool:
         self._admit()
         ready = []
         for slot, sid in enumerate(self.slot_scan):
@@ -259,10 +289,14 @@ class ReconstructionEngine:
                     or (scan.complete and scan.pending):
                 ready.append((slot, scan))
         for slot, scan in ready:
-            imgs, ms, n = self._take_batch(scan)
-            # The chunk's windows were checked at submit.
-            fold_projections(self._volumes[slot], imgs, ms, self.geom,
-                             plan=self.exec_plan, validate=False)
+            with spans.span("engine.fold", sid=scan.sid, slot=slot) as sp:
+                imgs, ms, n = self._take_batch(scan)
+                # The chunk's windows were checked at submit.
+                fold_projections(self._volumes[slot], imgs, ms, self.geom,
+                                 plan=self.exec_plan, validate=False)
+                if sp:
+                    sp.attrs.update(views=n,
+                                    wire=self.exec_plan.strip_dtype)
             scan.folded += n
             self.stats["folds"] += n
             self.stats["fold_launches"] += 1
@@ -279,9 +313,10 @@ class ReconstructionEngine:
                 continue
             scan = self.scans[sid]
             if scan.complete and not scan.pending:
-                scan.volume = self._volumes[slot].clone()
+                with spans.span("engine.retire", sid=sid, slot=slot):
+                    scan.volume = self._volumes[slot].clone()
+                    self._volumes[slot].zero_()
                 scan.done = True
-                self._volumes[slot].zero_()
                 self.slot_scan[slot] = None
                 self.stats["retired"] += 1
                 any_retired = True
