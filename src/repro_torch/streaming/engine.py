@@ -19,7 +19,12 @@ The port's counterpart of ``repro.streaming.engine`` (DESIGN.md §8):
   (its CUDA kernel on the card, its plain version on the CPU).  Slots
   that are not ready are never touched, which is the mask;
 * finished scans retire, their slot is zeroed in place and refilled
-  from the admission queue.
+  from the admission queue;
+* on a CUDA device no copy of a chunk waits for the card: views in
+  pinned host memory, the Parker rows' indices and the matrices cross on
+  the engine's copy stream, under the folds already queued, and the
+  filter waits for them there.  The host's lead over the card is bounded
+  in views (:data:`INFLIGHT_VIEWS`) instead of by a drain.
 
 Summation order within a volume follows arrival order, so a streamed
 result matches the one-shot :func:`repro_torch.core.backproject.
@@ -28,6 +33,7 @@ reconstruct` of the same projections to fp32 rounding (~1e-5).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -43,6 +49,15 @@ from ..dispatch.plan import ExecutionPlan
 
 __all__ = ["ProjectionChunk", "ScanState", "ReconstructionEngine"]
 
+# The host's lead over the card, in views: before a chunk's copies a CUDA
+# engine waits for the newest earlier submit whose views end more than
+# this many views back.  64 views are about two chunks of 31 RabbitCT
+# views (1248x960), ~25 ms of the card's work at L=512: more than the
+# host's ~5 ms a chunk, so the card does not starve while the host waits,
+# and few enough that a scan's latency grows by at most ~2 % and the
+# chunks in flight stage well under 1 GB on the card.
+INFLIGHT_VIEWS = 64
+
 
 @dataclasses.dataclass(frozen=True)
 class ProjectionChunk:
@@ -53,6 +68,11 @@ class ProjectionChunk:
     a tensor or a numpy array; ``matrices`` ``(k, 3, 4)`` (or one ``(3,
     4)``); ``angle_indices`` the ``k`` *global* angle indices (or a
     scalar).  Raw line integrals, filtered by the consumer on arrival.
+
+    A CUDA engine reads projections in pinned host memory (a CPU tensor
+    whose ``is_pinned()`` is true) after ``submit`` has returned: the
+    caller must not write into them until the scan's result is taken.
+    Other host projections are copied before ``submit`` returns.
     """
 
     projections: object
@@ -73,9 +93,57 @@ class ProjectionChunk:
         projs = as_f32(self.projections, resolve_device(device))
         if projs.ndim == 2:
             projs = projs[None]
+        return (projs, *self._host_arrays())
+
+    def _host_arrays(self):
         mats = np.asarray(self.matrices, np.float64).reshape(-1, 3, 4)
         idx = np.atleast_1d(np.asarray(self.angle_indices, np.int32))
-        return projs, mats, idx
+        return mats, idx
+
+
+class Inflight:
+    """The views a CUDA engine has queued and not yet seen done.
+
+    :meth:`mark` notes each submit: where it ends, counted in views
+    submitted, an event recorded on the compute stream after its work,
+    and the caller's pinned views it read, held until that event has
+    completed (the staging copies the engine pinned itself are kept by
+    the caching host allocator until their copies are done).  The engine
+    records the event as the next submit starts, so that it covers the
+    folds a drain queued after the submit too.  :meth:`wait` runs before
+    the next chunk's copies.  Any object with ``query()`` and
+    ``synchronize()`` serves as an event.
+    """
+
+    def __init__(self):
+        self.views = 0                      # views submitted so far
+        self._marks = collections.deque()   # (end, event, source)
+
+    def mark(self, k: int, event, source=None) -> None:
+        """A submit of ``k`` views, done on the card once ``event`` is."""
+        self.views += int(k)
+        self._marks.append((self.views, event, source))
+
+    def wait(self, sid: int | None = None) -> int | None:
+        """Wait for the newest submit whose views end more than
+        INFLIGHT_VIEWS views before the next chunk, unless its event has
+        completed; the older marks go with it (the compute stream runs in
+        order).  The wait is the span ``engine.copy.wait``.  Returns the
+        views queued after that submit, which stay in flight, or None
+        when no submit lies that far back."""
+        due = []
+        while (self._marks
+               and self.views - self._marks[0][0] > INFLIGHT_VIEWS):
+            due.append(self._marks.popleft())
+        if not due:
+            return None
+        end, event, _ = due[-1]
+        left = self.views - end
+        if not event.query():
+            with spans.span("engine.copy.wait", sid=sid, bytes=0,
+                            blocks=True, views=left):
+                event.synchronize()
+        return left
 
 
 @dataclasses.dataclass
@@ -117,6 +185,10 @@ class ReconstructionEngine:
     device.  ``pbatch`` projections fold per volume pass (default: the
     tuned kernel's depth when it runs, else the plan's).  The slot
     volumes are updated in place.
+
+    On a CUDA device the chunks' copies run on the engine's own copy
+    stream, and the host waits only to keep its lead over the card
+    within :data:`INFLIGHT_VIEWS` views (see :meth:`submit`).
     """
 
     def __init__(self, geom: Geometry, *, n_slots: int = 4,
@@ -155,6 +227,12 @@ class ReconstructionEngine:
         self.stats = {"folds": 0, "fold_ticks": 0, "retired": 0,
                       "pallas_folds": 0, "aborted": 0, "fold_launches": 0}
         self._next_sid = 0
+        if self.device.type == "cuda":
+            self._copies = torch.cuda.Stream(self.device)
+            self._inflight = Inflight()
+        else:
+            self._copies = self._inflight = None
+        self._unmarked = None   # (views, source) of the last submit
 
     # ------------------------------------------------------------------
     # Admission
@@ -200,6 +278,13 @@ class ReconstructionEngine:
         *submitted angle indices*, stages the result, and runs one fold
         tick.  Chunks may be shuffled, interleaved across scans and split
         arbitrarily.
+
+        On a CUDA device the work is queued and ``submit`` returns before
+        it is done.  It waits only for the newest earlier submit that ends
+        more than :data:`INFLIGHT_VIEWS` views before this chunk, while
+        the card has not finished it.  Views in pinned host memory are
+        read on the card after ``submit`` returns: do not write into them
+        until the scan's result is taken.
         """
         if not isinstance(chunk, ProjectionChunk):
             raise TypeError(f"submit takes a ProjectionChunk, got "
@@ -215,17 +300,15 @@ class ReconstructionEngine:
     def _submit(self, scan: ScanState, chunk: ProjectionChunk) -> int:
         # Three copies from the host to the card: the views (none where
         # they are on the card already), the Parker rows' indices and the
-        # matrices.  Each blocks the host until the stream has drained up
-        # to it; a span's ``bytes`` counts what crossed to the card.
+        # matrices; a span's ``bytes`` counts what crossed to the card.
+        # On a card they run on the copy stream, which the compute stream
+        # waits for before the filter, and hold the host only for pageable
+        # views (``blocks``), which cannot be read asynchronously without
+        # a host copy of the same size.  The host waits instead to keep
+        # its lead within INFLIGHT_VIEWS views (``engine.copy.wait``).
         card = self.device.type == "cuda"
-        with spans.span("engine.copy.views", sid=scan.sid) as sp:
-            projs, mats, idx = chunk.arrays(self.device)
-            if sp:
-                src = chunk.projections
-                n = projs.nbytes if card and not (
-                    torch.is_tensor(src) and src.is_cuda) else 0
-                sp.attrs.update(bytes=n, blocks=n > 0)
-        k = projs.shape[0]
+        mats, idx = chunk._host_arrays()
+        k = chunk.n
         if mats.shape[0] != k or idx.shape != (k,):
             raise ValueError(
                 f"chunk of {k} projection(s) needs {k} matrices and {k} "
@@ -239,24 +322,71 @@ class ReconstructionEngine:
                 f"{scan.received + k} submitted")
         if self.validate:
             check_windows(self.geom, mats, self.exec_plan, self.device)
+        if card:
+            self._bound_lead(scan.sid)
+        src = chunk.projections
+        pinned = card and torch.is_tensor(src) and src.is_pinned()
+        with spans.span("engine.copy.views", sid=scan.sid) as sp:
+            projs = self._cross(src) if pinned else as_f32(src, self.device)
+            if projs.ndim == 2:
+                projs = projs[None]
+            if sp:
+                n = projs.nbytes if card and not (
+                    torch.is_tensor(src) and src.is_cuda) else 0
+                sp.attrs.update(bytes=n, blocks=n > 0 and not pinned)
         rows = None
         if self.plan.parker is not None:
             with spans.span("engine.copy.parker", sid=scan.sid,
-                            bytes=8 * k * card, blocks=card):
-                rows = torch.as_tensor(idx, dtype=torch.int64,
-                                       device=self.device)
+                            bytes=8 * k * card, blocks=False):
+                rows = self._send(idx.astype(np.int64))
+        with spans.span("engine.copy.matrices", sid=scan.sid,
+                        bytes=48 * k * card, blocks=False):
+            mats32 = self._send(mats.astype(np.float32))
+        if card:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_stream(self._copies)
         with spans.span("engine.filter", sid=scan.sid, views=k):
             pw = None if rows is None else self.plan.parker[rows]
             filt = apply_filter(projs, self.plan, pw)
-        with spans.span("engine.copy.matrices", sid=scan.sid,
-                        bytes=48 * k * card, blocks=card):
-            mats32 = torch.as_tensor(mats.astype(np.float32),
-                                     device=self.device)
         for i in range(k):
             scan.pending.append((filt[i], mats32[i]))
         scan.received += k
         self.step()
+        if card:
+            self._unmarked = (k, src if pinned else None)
         return k
+
+    def _bound_lead(self, sid: int) -> None:
+        """Mark the last submit done once all the work queued since it
+        is (its folds and those of any drain after it), then wait within
+        INFLIGHT_VIEWS views.  The event is not a blocking-sync one:
+        with one-view chunks some 55 of those pending held the host in
+        the filter's launches, before the bound and outside its span."""
+        if self._unmarked is not None:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            k, source = self._unmarked
+            self._inflight.mark(k, done, source)
+            self._unmarked = None
+        self._inflight.wait(sid)
+
+    def _send(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the engine's device; on a card through pinned host
+        memory from the caching host allocator, which does not reuse it
+        before the copy is done."""
+        if self.device.type != "cuda":
+            return torch.as_tensor(a, device=self.device)
+        return self._cross(torch.from_numpy(a).pin_memory())
+
+    def _cross(self, host: torch.Tensor) -> torch.Tensor:
+        """Pinned ``host`` on the card, copied on the copy stream without
+        waiting.  The copy lands in memory allocated on that stream and
+        marked as read by the compute stream, which must wait for the
+        copy stream before it reads."""
+        with torch.cuda.stream(self._copies):
+            dev = host.to(self.device, non_blocking=True)
+        dev.record_stream(torch.cuda.current_stream(self.device))
+        return dev
 
     # ------------------------------------------------------------------
     # Fold path

@@ -6,13 +6,15 @@ On the CPU: a served scan records nothing without a profiler; under
 what the engine counts, keep tickets apart, appear in the exported
 timeline with the same nesting, and the buffer's bound counts what does
 not fit.  This file imports neither JAX nor the reference package, so
-its card test runs on a machine with a card:
+its card tests run on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/test_torch_spans.py
 
-There, each copy the engine makes to the card is held to block the host
-until the stream has drained.
+There, only a copy of pageable views is held to block the host until the
+stream has drained; pinned views, the Parker rows' indices and the
+matrices cross without waiting, and the bound on the host's lead waits
+once it is reached.
 """
 
 import asyncio
@@ -213,53 +215,154 @@ def test_the_buffer_holds_nothing_the_collector_tracks(served):
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the copies block only on a card")
+        pytest.skip("needs a CUDA device: the copies are asynchronous only "
+                    "on a card")
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("copy, resident", [
-    ("engine.copy.views", False), ("engine.copy.views", True),
-    ("engine.copy.parker", False), ("engine.copy.matrices", False)])
-def test_each_copy_to_the_card_blocks_the_host(dev, copy, resident,
-                                               monkeypatch):
-    """Work queued on the stream just before the copy: the copy's span
-    lasts until that work is done.  Views already on the card are not
-    copied, and their span does not wait."""
-    from repro_torch.streaming import ReconstructionEngine
+CYCLES = 200_000_000
 
-    cycles = 200_000_000
+
+def _sleep_seconds():
+    """What ``torch.cuda._sleep(CYCLES)`` holds the stream, in seconds."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    torch.cuda._sleep(cycles)
+    torch.cuda._sleep(CYCLES)
     end.record()
     torch.cuda.synchronize()
-    sleep_s = start.elapsed_time(end) / 1e3
+    return start.elapsed_time(end) / 1e3
 
+
+def _spans_of(eng, chunks, before, monkeypatch):
+    """Submit ``chunks`` (scan id, chunk), each followed by a drain as
+    the front door's, under the profiler, calling ``before(name)`` as
+    each span opens; the recorded spans."""
     real = spans.span
 
-    def sleeping(name, **kw):
-        if name == copy:
-            torch.cuda._sleep(cycles)
+    def hooked(name, **kw):
+        before(name)
         return real(name, **kw)
+
+    torch.cuda.synchronize()
+    monkeypatch.setattr(spans, "span", hooked)
+    spans.clear()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            for sid, chunk in chunks:
+                eng.submit(sid, chunk)
+                eng.drain()
+            torch.cuda.synchronize()
+        return spans.snapshot().spans
+    finally:
+        monkeypatch.setattr(spans, "span", real)
+        spans.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("copy, views", [
+    ("engine.copy.views", "pinned"), ("engine.copy.views", "resident"),
+    ("engine.copy.views", "pageable"), ("engine.copy.parker", "pinned"),
+    ("engine.copy.matrices", "pinned")])
+def test_each_copy_to_the_card_blocks_the_host(dev, copy, views,
+                                               monkeypatch):
+    """Work queued on the compute stream just before the copy: only a
+    copy of pageable views lasts until that work is done.  Views in
+    pinned memory, the Parker rows' indices and the matrices cross on
+    the copy stream and do not wait; views already on the card are not
+    copied.  The spans are those of the engine's second scan: its first
+    copies allocate on the copy stream and load what they use, once."""
+    from repro_torch.streaming import ReconstructionEngine
+
+    sleep_s = _sleep_seconds()
+    eng = ReconstructionEngine(G, n_slots=1, pbatch=4, device=dev)
+    src = {"pinned": lambda v: v.pin_memory(), "resident": lambda v:
+           v.to(dev), "pageable": lambda v: v.numpy()}[views](
+        torch.as_tensor(PROJS, dtype=torch.float32))
+    warm = eng.begin_scan()
+    eng.submit(warm, ProjectionChunk(src, MATS, np.arange(G.n_proj)))
+    eng.drain()
+    torch.cuda.synchronize()
+    eng.result(warm, pop=True)
+    sid = eng.begin_scan()
+
+    def sleep(name):
+        if name == copy:
+            torch.cuda._sleep(CYCLES)
+
+    got = _spans_of(eng, [(sid, ProjectionChunk(src, MATS,
+                                                np.arange(G.n_proj)))],
+                    sleep, monkeypatch)
+    got = [s for s in got if s.name == copy]
+    assert len(got) == 1
+    blocks = views == "pageable"
+    assert got[0].attrs["blocks"] is blocks
+    assert (got[0].attrs["bytes"] > 0) is (views != "resident")
+    if blocks:
+        assert got[0].seconds >= 0.8 * sleep_s, (got[0].seconds, sleep_s)
+    else:
+        assert got[0].seconds < 0.2 * sleep_s, (got[0].seconds, sleep_s)
+    assert torch.equal(eng.result(sid), _plain_volume(dev))
+
+
+def _plain_volume(dev):
+    """The same scan submitted from pageable views, synchronised."""
+    from repro_torch.streaming import ReconstructionEngine
 
     eng = ReconstructionEngine(G, n_slots=1, pbatch=4, device=dev)
     sid = eng.begin_scan()
-    views = torch.as_tensor(PROJS, dtype=torch.float32)
-    views = views.to(dev) if resident else views.pin_memory()
+    eng.submit(sid, ProjectionChunk(PROJS.numpy(), MATS,
+                                    np.arange(G.n_proj)))
+    eng.drain()
     torch.cuda.synchronize()
-    monkeypatch.setattr(spans, "span", sleeping)
-    spans.clear()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]):
-        eng.submit(sid, ProjectionChunk(views, MATS, np.arange(G.n_proj)))
-        torch.cuda.synchronize()
-    got = [s for s in spans.snapshot().spans if s.name == copy]
-    spans.clear()
-    assert len(got) == 1
-    if resident:
-        assert got[0].attrs == {"bytes": 0, "blocks": False}
-        assert got[0].seconds < 0.2 * sleep_s, (got[0].seconds, sleep_s)
-    else:
-        assert got[0].attrs["blocks"] is True and got[0].attrs["bytes"] > 0
-        assert got[0].seconds >= 0.8 * sleep_s, (got[0].seconds, sleep_s)
+    return eng.result(sid)
+
+
+@pytest.mark.cuda
+def test_the_bound_waits_for_the_oldest_chunk(dev, monkeypatch):
+    """Four chunks of 33 pinned views queued behind a sleep: the fourth
+    starts 99 views in, more than INFLIGHT_VIEWS past the first chunk's
+    end, so it waits once, for the first chunk's work, which the sleep
+    holds; the 66 views after it stay in flight."""
+    from repro_torch.core.phantom import make_dataset
+    from repro_torch.streaming import ReconstructionEngine
+    from repro_torch.streaming.engine import INFLIGHT_VIEWS
+
+    g = Geometry().scaled(16, n_proj=132)
+    projs, mats, _ = make_dataset(g, device="cpu")
+    projs = projs.pin_memory()
+    size = 33
+    assert size <= INFLIGHT_VIEWS < 2 * size
+
+    def chunks(sid):
+        return [(sid, ProjectionChunk(projs[c:c + size], mats[c:c + size],
+                                      np.arange(c, c + size)))
+                for c in range(0, g.n_proj, size)]
+
+    # Load every kernel first, on an engine of its own: the bound counts
+    # an engine's views across its scans.
+    warm = ReconstructionEngine(g, n_slots=1, pbatch=4, device=dev)
+    for s, c in chunks(warm.begin_scan()):
+        warm.submit(s, c)
+        warm.drain()
+    torch.cuda.synchronize()
+    sleep_s = _sleep_seconds()
+    eng = ReconstructionEngine(g, n_slots=1, pbatch=4, device=dev)
+    sid = eng.begin_scan()
+    first = []
+
+    def sleep(name):
+        if name == "engine.submit" and not first:
+            first.append(True)
+            torch.cuda._sleep(CYCLES)
+
+    got = _spans_of(eng, chunks(sid), sleep, monkeypatch)
+    waits = [s for s in got if s.name == "engine.copy.wait"]
+    assert len(waits) == 1
+    assert waits[0].attrs == {"bytes": 0, "blocks": True,
+                              "views": 2 * size}
+    assert waits[0].seconds >= 0.5 * sleep_s, (waits[0].seconds, sleep_s)
+    submits = [s for s in got if s.name == "engine.submit"]
+    assert waits[0].parent == submits[3].id
+    assert not any(s.attrs.get("blocks") for s in got
+                   if s.name.startswith("engine.copy.") and s is not waits[0])
