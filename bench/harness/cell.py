@@ -76,6 +76,17 @@ def program(cfg: dict, scan: Scan, device: torch.device):
     return fd, engine
 
 
+def pacing(records: list) -> dict | None:
+    """How far a paced window's views fell behind their schedule (none
+    for a closed loop)."""
+    late = sorted(x for r in records for x in r.late)
+    if not late:
+        return None
+    return {"views": len(late), "late_mean_ms": 1e3 * sum(late) / len(late),
+            "late_p99_ms": 1e3 * late[int(0.99 * (len(late) - 1))],
+            "late_max_ms": 1e3 * late[-1]}
+
+
 def references(inputs: Inputs, wires: list, device: torch.device) -> list:
     """Per scan, ``{wire: (N,) reference samples}``."""
     out = []
@@ -148,6 +159,16 @@ def run(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool,
     for r in records:
         if r.error:
             log(f"scan of client {r.client} failed: {r.error}")
+    paced = pacing(records)
+    if paced:
+        log("paced: views behind their schedule, "
+            + ", ".join(f"{k} {v}" for k, v in paced.items()))
+        log("paced: lag from the last frame to the volume, s: "
+            + " ".join("-" if r.t_done is None
+                       else f"{r.t_done - r.t_last:.6f}" for r in records))
+        log("paced: the last frame behind its schedule, s: "
+            + " ".join(f"{r.late[-1]:.6f}" if len(r.late) == scan.n_proj
+                       else "-" for r in records))
     log("scans (client, scan, opened, returned; s from the window's start): "
         + " ".join(f"{r.client},{r.scan},{r.t_open - t0:.4f},"
                    + ("-" if r.t_done is None else f"{r.t_done - t0:.4f}")

@@ -32,6 +32,8 @@ class Inputs:
         self.scan = scan
         self.ells = [ellipsoids(scan, rng) for _ in range(scans)]
         self.order = [rng.permutation(scan.n_proj) for _ in range(scans)]
+        # Per scan, each angle index's place in the stored order.
+        self.slot = [np.argsort(o) for o in self.order]
         self.mats = projection_matrices(scan)
         n_vox = scan.L ** 3
         flat = np.unique(rng.integers(0, n_vox, min(N_SAMPLE, n_vox)))
@@ -57,3 +59,9 @@ class Inputs:
         sl = slice(c * size, (c + 1) * size)
         idx = self.order[s][sl]
         return self.views[s][sl], self.mats[idx], idx
+
+    def frame(self, s: int, angle: int):
+        """``(views, matrices, angle indices)`` of the one view of scan
+        ``s`` taken at angle index ``angle``, wherever the seeded order
+        stored it."""
+        return self.chunk(s, int(self.slot[s][angle]), 1)

@@ -49,9 +49,9 @@ def config(bench: dict, name: str) -> dict:
 
 
 # The keys of a traffic mix that the harness reads (``about`` is prose).
-# The clients always run a closed loop.
+# The clients run a closed loop, or are paced at ``fps`` frames a second.
 TRAFFIC_KEYS = frozenset({"clients", "tenants", "chunk", "scans", "views",
-                          "about"})
+                          "fps", "about"})
 
 
 def traffic(name: str) -> dict:

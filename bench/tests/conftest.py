@@ -18,6 +18,19 @@ TINY = {"config": {"geometry": {"n_u": 39, "n_v": 30, "du": 10.24,
                                 "n_proj": 32}},
         "traffic": {"chunk": 8, "clients": 3}}
 
+# A paced mix at that size: one view a submit at 500 frames a second
+# (62 ms a scan), 2 scanners.
+TINY_PACED = {"config": TINY["config"],
+              "traffic": {"chunk": 1, "clients": 2, "fps": 500}}
+
+
+def tiny(bench, name: str) -> dict:
+    """The overrides that bring cell ``name`` to the tiny size."""
+    from bench.harness import registry
+
+    mix = registry.traffic(registry.cell(bench, name)["traffic"])
+    return TINY_PACED if "fps" in mix else TINY
+
 
 @pytest.fixture(scope="session")
 def bench():

@@ -10,27 +10,28 @@ import torch
 
 import repro_torch.streaming.engine as engine_mod
 from bench.harness import cell, control
-from bench.tests.conftest import TINY
+from bench.tests.conftest import tiny
 
 CPU = torch.device("cpu")
 FOLD = engine_mod.fold_projections
+CELLS = ["ct512-f32-resident", "ct512-int8-host31", "ct512-f32-frames"]
 
 
 def run(bench, name="ct512-f32-resident", seed=41):
     return cell.run(bench, name, seed, 0.5, False, CPU, time.perf_counter(),
-                    overrides=TINY)
+                    overrides=tiny(bench, name))
 
 
-@pytest.mark.parametrize("name", ["ct512-f32-resident", "ct512-int8-host31"])
+@pytest.mark.parametrize("name", CELLS)
 def test_a_sound_run_is_correct(bench, name):
     out = run(bench, name)
     assert out["correct"], out["checks"]
 
 
-@pytest.mark.parametrize("name", ["ct512-f32-resident", "ct512-int8-host31"])
+@pytest.mark.parametrize("name", CELLS)
 def test_the_control_is_not_correct(bench, name):
     checks, ok = control.run(bench, name, 43, 0.5, CPU, time.perf_counter(),
-                             tiny=TINY)
+                             tiny=tiny(bench, name))
     assert not ok, checks
 
 
@@ -44,9 +45,10 @@ def _half_batch(volume, images, mats, *args, **kwargs):
     return FOLD(volume, images[keep] * scale, mats[keep], *args, **kwargs)
 
 
+@pytest.mark.parametrize("name", ["ct512-f32-resident", "ct512-f32-frames"])
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_batch",
                                    "answer_altered"])
-def test_a_broken_timed_path_is_not_correct(bench, monkeypatch, fault):
+def test_a_broken_timed_path_is_not_correct(bench, monkeypatch, fault, name):
     if fault == "answer_altered":
         result = engine_mod.ReconstructionEngine.result
 
@@ -61,5 +63,5 @@ def test_a_broken_timed_path_is_not_correct(bench, monkeypatch, fault):
         monkeypatch.setattr(engine_mod, "fold_projections",
                             _unchanged if fault == "state_unchanged"
                             else _half_batch)
-    out = run(bench)
+    out = run(bench, name)
     assert not out["correct"], out["checks"]

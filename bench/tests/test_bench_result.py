@@ -15,24 +15,25 @@ from bench import run as runner
 from bench.harness import cell, registry
 from bench.harness.trace import Trace, short
 from bench.harness.yardstick import least_seconds
-from bench.tests.conftest import TINY
+from bench.tests.conftest import TINY, tiny
 
 BENCH_DIR = pathlib.Path(runner.__file__).parent
 TOP_KEYS = {"correct", "attempted", "failed", "metrics", "device", "checks"}
 
 
+@pytest.mark.parametrize("name", ["ct512-f32-resident", "ct512-f32-frames"])
 @pytest.mark.parametrize("trace", [0, 1])
-def test_the_last_line_has_the_contracts_keys(bench, trace):
-    out = cell.run(bench, "ct512-f32-resident", 2 ** 31 + 5, 0.5,
+def test_the_last_line_has_the_contracts_keys(bench, trace, name):
+    out = cell.run(bench, name, 2 ** 31 + 5, 0.5,
                    bool(trace), torch.device("cpu"), time.perf_counter(),
-                   overrides=TINY)
+                   overrides=tiny(bench, name))
     line = json.loads(runner.result_line(out))
     assert set(line) == TOP_KEYS | ({"breakdown"} if trace else set())
     assert list(line)[-1] == "checks"
     assert line["correct"] is True and line["failed"] == 0
     assert line["attempted"] > 0
     want = {m["name"] for m in registry.metrics(
-        bench, "ct512-f32-resident", "per_layer" if trace else "end_to_end")}
+        bench, name, "per_layer" if trace else "end_to_end")}
     assert set(line["metrics"]) <= want
     for m in line["metrics"].values():
         assert set(m) == {"value", "unit"}
